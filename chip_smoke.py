@@ -1,0 +1,579 @@
+#!/usr/bin/env python3
+"""GPU smoke of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
+
+    python3 chip_smoke.py [--seed 0] [--out details.json]
+
+Phases (any failure exits non-zero before the result line):
+
+1. Card and build: the card's name and power limit, then the three CUDA
+   kernels built from ``src/repro_torch/csrc`` (one nvcc per source, in
+   parallel).
+2. Kernel vs plain version: ``salr_spmm`` and ``bitmap_spmm`` at every
+   (K, N_pad, tile, cap_t) of smollm_135m's projections and
+   ``paged_gqa_attention`` at its decode shape, each at the decode batch
+   and at prefill size, in bf16 and in f32 with TF32 off, held to the
+   plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32 (both
+   sum in f32 and round once, so only the f32 summation order differs;
+   in bf16 that flips the rounding of a few outputs).  The bf16 limit
+   must also reject a planted fault, ``u = x @ A_cat`` left unrounded,
+   whose plain-version reading is taken at every shape.  Paged attention
+   must give a finite output, equal to the clean one, with NaN in the
+   null page and in a freed page.  Each is timed (profiler device time,
+   L2 flushed before every launch) beside the plain version and one
+   library call as a yardstick.
+3. Main path: smollm_135m at full width, compressed on the GPU from
+   seeded dense weights; 8 requests (prompt 128 sharing a 64-token
+   prefix, 32 new tokens) served by the batch engine (greedy_generate)
+   and by the continuous engine on paged KV with prefix sharing (4
+   slots), plus one rank-0 SALR layer through ``apply_salr``.  Every
+   request must return 32 in-vocab tokens, logits must be finite, and
+   engine tokens must equal greedy tokens up to near-ties.  Prefill
+   logits of the kernel route must lie within ``ROUTE_TOL`` of the
+   reference route's, and each planted fault (a projection family's
+   adapter term dropped) beyond it.
+4. Launch counts of the main path: every kernel > 0, ``salr_spmm``
+   exactly 210 per forward (7 projections x 30 layers).
+
+The last lines are the card (nvidia-smi), a JSON object describing each
+kernel, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+H100_BYTES_PER_S = 3.35e12                       # HBM3, SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, tensor core / CUDA core
+# kernel vs plain version, rel-L2: both sum in f32 and round once, so
+# only the summation order differs (bf16: a few outputs round the other
+# way; sound readings <= 1.2e-4 over seeds 0-2, an unrounded u reads
+# 1.9e-3 to 2.3e-3)
+TOL = {"bfloat16": 5e-4, "float32": 1e-5}
+# kernel route vs reference route, prefill logits at full width (bf16
+# rounding at other places through 30 layers): sound readings 1.9e-2 to
+# 2.4e-2 over seeds 0-2, a projection shape's adapter term dropped reads
+# 0.23 to 0.71.  A guard against gross divergence only: subtle faults
+# (an unrounded u) are phase 2's to catch
+ROUTE_TOL = 7e-2
+R_CAT = 128                                      # LoRA 64 + residual 64
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    raise SystemExit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Device time per call: the summed durations of the GPU work one call
+    launches, read from torch.profiler (CUPTI) traces of ``iters`` calls.
+    The L2 cache is flushed before each call (the main path reads every
+    weight cold: the model's compressed weights exceed the 50 MB L2) by a
+    bitwise_not over 64 MB, whose kernels are left out of the sum.  A trace
+    can miss device records, so each function is traced three times and
+    the median is taken over the traces that hold the most records.  A
+    function whose traces hold no device record fails the run."""
+
+    FLUSH = "bitwise_not"
+
+    def __init__(self, torch, iters: int = 20, traces: int = 3):
+        self.torch = torch
+        self.iters = iters
+        self.traces = traces
+        self.flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def _trace(self, fn) -> tuple:
+        """(device us of fn's work, fn's device records)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(self.iters):
+                self.flush_buf.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        counts: dict = {}
+        device_us(torch, prof, by_name, counts)
+        work = [k for k in by_name if self.FLUSH not in k]
+        return sum(by_name[k] for k in work), sum(counts[k] for k in work)
+
+    def ms(self, fn) -> float:
+        for _ in range(3):
+            fn()
+        self.torch.cuda.synchronize()
+        traces = [self._trace(fn) for _ in range(self.traces)]
+        most = max(n for _, n in traces)
+        if most == 0:
+            fail("the profiler recorded no device activity for a timed function")
+        full = sorted(us for us, n in traces if n == most)
+        return full[len(full) // 2] / self.iters / 1e3
+
+
+def device_us(torch, prof, by_name: dict = None, counts: dict = None) -> float:
+    """Summed duration (us) of the device activities in a profiler trace;
+    ``by_name`` / ``counts`` collect their time / number per kernel name."""
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            total += us
+            if by_name is not None:
+                by_name[e.name] = by_name.get(e.name, 0.0) + us
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
+    return total
+
+
+def _row_line(row: dict) -> str:
+    shape = " ".join(f"{k}={row[k]}" for k in ("layer", "M", "K", "N_pad", "tile", "cap_t",
+                                                "B", "live_positions") if k in row)
+    fault = (f" (unrounded u: {row['unrounded_u_rel_l2']:.2e})"
+             if "unrounded_u_rel_l2" in row else "")
+    times = " ".join(f"{k} {row[k]:.4f}" for k in ("ms", "plain_ms", "library_ms",
+                                                     "bound_ms") if k in row)
+    return (f"phase 2: {row['kernel']} {row['dtype']} {shape}: rel-L2 {row['rel_l2']:.2e}"
+            f"{fault} max-abs {row['max_abs_err']:.2e} {times}")
+
+
+def rel_l2(torch, y, ref) -> float:
+    d = (y.float() - ref.float()).norm().item()
+    return d / max(ref.float().norm().item(), 1e-30)
+
+
+def spmm_checks(torch, timer, gen, rows: list) -> dict:
+    """salr_spmm / bitmap_spmm vs their plain versions at the main path's
+    projection shapes.  Returns per-kernel summaries."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import salr
+    from repro_torch.kernels import ops, ref
+
+    shapes = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/up": (576, 1536),
+              "down": (1536, 576)}
+    summary = {"salr_spmm": {"max_abs_err": 0.0}, "bitmap_spmm": {"max_abs_err": 0.0}}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for lname, (k, n) in shapes.items():
+            w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+            tbw, _ = salr._tiled_encode(w.to(dt), salr.SALRConfig(dtype=dtype_name))
+            a = (torch.randn((k, R_CAT), generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+            b = (torch.randn((R_CAT, n), generator=gen, device="cuda") / math.sqrt(R_CAT)).to(dt)
+            b_pad = ops._pad_bcat(b, tbw.cols)
+            nnz = int(bm.unpack_bits(tbw.words.reshape(-1, tbw.tile // 32), tbw.tile).sum())
+            w_dense = salr.materialize_base(tbw)
+            for m in (4, 8, 128, 1024):
+                x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
+                cases = {
+                    "salr_spmm": (lambda: ops.salr_matmul(x, tbw, a, b_pad),
+                                  lambda: ref.salr_spmm_ref(x, tbw, a, b_pad),
+                                  lambda: x @ w_dense + (x @ a) @ b_pad, R_CAT),
+                    "bitmap_spmm": (lambda: ops.bitmap_matmul(x, tbw),
+                                    lambda: ref.bitmap_spmm_ref(x, tbw),
+                                    lambda: x @ w_dense, 0),
+                }
+                for name, (kern, plain, lib, r) in cases.items():
+                    y, y_ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    err = rel_l2(torch, y, y_ref)
+                    abs_err = (y.float() - y_ref.float()).abs().max().item()
+                    if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
+                        fail(f"{name} {dtype_name} {lname} M={m}: rel-L2 {err:.3e} "
+                             f"> {TOL[dtype_name]:.0e}")
+                    s = summary[name]
+                    s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+                    es = y.element_size()
+                    # what the function needs: x, the words, the nnz stored
+                    # values, A and B at the logical width n, y at width n
+                    nbytes = (m * k * es + tbw.words.numel() * 4 + nnz * es
+                              + (k * r + r * n) * es + m * n * es)
+                    flops = 2 * m * nnz + 2 * m * k * r + 2 * m * r * n
+                    bound = max(nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+                    row = {"kernel": name, "dtype": dtype_name, "layer": lname, "M": m,
+                           "K": k, "N_pad": tbw.cols, "tile": tbw.tile, "cap_t": tbw.cap_t,
+                           "rel_l2": err, "max_abs_err": abs_err, "bytes": nbytes,
+                           "flops": flops, "bound_ms": bound * 1e3,
+                           "bound_by": ("bytes" if nbytes / H100_BYTES_PER_S
+                                        >= flops / PEAK_FLOPS[dtype_name] else "operations")}
+                    if dtype_name == "bfloat16" and r:
+                        # planted fault: the plain version with u unrounded
+                        unrounded = (x.float() @ w_dense.float() + (x.float() @ a.float())
+                                     @ b_pad.float()).to(dt)
+                        fault = rel_l2(torch, unrounded, y_ref)
+                        row["unrounded_u_rel_l2"] = fault
+                        if not fault > TOL[dtype_name]:
+                            fail(f"bf16 limit {TOL[dtype_name]:.0e} does not reject an "
+                                 f"unrounded u at {lname} M={m} (rel-L2 {fault:.3e})")
+                    if dtype_name == "bfloat16":
+                        row.update(ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                                   library_ms=timer.ms(lib))
+                        # the yardstick shape in the kernels line: one decode
+                        # step of the widest projection
+                        if lname == "gate/up" and m == 4:
+                            s.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                             "bound_ms", "bound_by")})
+                            s["shape"] = "bf16 M=4 K=576 N_pad=1536 tile=256 cap_t=160"
+                    rows.append(row)
+                    print(_row_line(row))
+    return summary
+
+
+def paged_checks(torch, timer, gen, rows: list) -> dict:
+    """paged_gqa_attention vs its plain version at smollm_135m's decode
+    shape, with NaN planted in the null page and a freed page."""
+    from repro_torch.kernels import ops, ref
+
+    h, kh, d, ps, max_pages = 9, 3, 64, 8, 20       # max_ctx 160
+    summary = {"max_abs_err": 0.0}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for b in (4, 8):
+            n_pages = b * max_pages + 2               # + null page + one freed page
+            freed = n_pages - 1
+            kp = torch.randn((n_pages, ps, kh, d), generator=gen, device="cuda").to(dt)
+            vp = torch.randn((n_pages, ps, kh, d), generator=gen, device="cuda").to(dt)
+            perm = torch.randperm(b * max_pages, generator=gen, device="cuda") + 1
+            table = perm.reshape(b, max_pages).to(torch.int32)
+            pos = torch.tensor([159, 100, 37, 0, 7, 8, 63, 150][:b], dtype=torch.int32,
+                               device="cuda")
+            # entries past each slot's last live page: the null page on even
+            # slots, a freed page on odd ones
+            for i in range(b):
+                last = int(pos[i]) // ps
+                table[i, last + 1:] = 0 if i % 2 == 0 else freed
+            q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
+            clean = ops.paged_gqa_attention(q, kp, vp, table, pos)
+            plain = ref.paged_gqa_attention_ref(q, kp, vp, table, pos)
+            live = torch.zeros(n_pages, dtype=torch.bool, device="cuda")
+            live[table.long().flatten()] = True
+            for i in range(b):
+                live[table[i, int(pos[i]) // ps + 1:].long()] = False
+            dead = ~live
+            kp_nan, vp_nan = kp.clone(), vp.clone()
+            kp_nan[dead] = float("nan")
+            vp_nan[dead] = float("nan")
+            y = ops.paged_gqa_attention(q, kp_nan, vp_nan, table, pos)
+            plain_nan = ref.paged_gqa_attention_ref(q, kp_nan, vp_nan, table, pos)
+            torch.cuda.synchronize()
+            if not torch.isfinite(y).all() or not torch.equal(y, clean):
+                fail(f"paged_gqa_attention {dtype_name} B={b}: dead-page NaN reached "
+                     "the output")
+            if not torch.isfinite(plain_nan).all():
+                fail("plain paged attention let dead-page NaN through")
+            err = rel_l2(torch, y, plain)
+            abs_err = (y.float() - plain.float()).abs().max().item()
+            if not (err <= TOL[dtype_name]):
+                fail(f"paged_gqa_attention {dtype_name} B={b}: rel-L2 {err:.3e}")
+            summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
+            es = q.element_size()
+            live_pos = int((pos.long() + 1).sum())
+            live_pages = int((pos.long() // ps + 1).sum())
+            nbytes = (2 * b * h * d * es + 2 * live_pos * kh * d * es
+                      + live_pages * 4 + b * 4)
+            flops = 4 * live_pos * h * d
+            bound = max(nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+            row = {"kernel": "paged_gqa_attention", "dtype": dtype_name, "B": b, "H": h,
+                   "KH": kh, "d": d, "page_size": ps, "max_pages": max_pages,
+                   "live_positions": live_pos, "rel_l2": err, "max_abs_err": abs_err,
+                   "bytes": nbytes, "flops": flops, "bound_ms": bound * 1e3,
+                   "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flops /
+                   PEAK_FLOPS[dtype_name] else "operations"}
+            if dtype_name == "bfloat16":
+                w = max_pages * ps
+                # the yardstick attends over pre-gathered, head-expanded K/V
+                kg = kp[table.long()].reshape(b, w, kh, d).transpose(1, 2)
+                vg = vp[table.long()].reshape(b, w, kh, d).transpose(1, 2)
+                kg = kg.repeat_interleave(h // kh, dim=1).contiguous()
+                vg = vg.repeat_interleave(h // kh, dim=1).contiguous()
+                mask = (torch.arange(w, device="cuda")[None] <= pos[:, None])[:, None, None]
+                qs = q.transpose(1, 2)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                row.update(
+                    ms=timer.ms(lambda: ops.paged_gqa_attention(q, kp, vp, table, pos)),
+                    plain_ms=timer.ms(lambda: ref.paged_gqa_attention_ref(q, kp, vp, table,
+                                                                          pos)),
+                    library_ms=timer.ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)))
+                if b == 4:
+                    summary.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                           "bound_ms", "bound_by")})
+                    summary["shape"] = (f"bf16 B=4 H=9 KH=3 d=64 page_size=8 "
+                                        f"live positions {live_pos}")
+            rows.append(row)
+            print(_row_line(row))
+    return summary
+
+
+def main_path(torch, dev, seed: int, rows: list):
+    """Serve smollm_135m at full width through both engines on ``dev``.
+    Returns the launch counts of the run and the counts expected."""
+    from repro_torch import configs
+    from repro_torch.core import execplan, salr
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = configs.get("smollm_135m")
+    params, init_s = serve.build_params(cfg, seed, dev)
+    nbytes = 0
+    for t in _tensors(params):
+        nbytes += t.numel() * t.element_size()
+    print(f"phase 3: compressed {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}) on {dev} in {init_s:.2f}s; parameter bytes {nbytes}")
+    gen = torch.Generator().manual_seed(seed + 1)
+    d = cfg.d_model
+    rank0 = salr.compress_linear(gen, (torch.randn((d, d), generator=gen)
+                                       / math.sqrt(d)).to(dev),
+                                 salr.SALRConfig(lora_rank=0, res_rank=0, dtype=cfg.dtype))
+    n_req, prompt_len, gen_len, n_slots = 8, 128, 32, 4
+    prompts = serve.request_prompts(cfg, n_req, prompt_len, seed, shared_prefix=64)
+    plan = execplan.resolve_plan(cfg)
+    x_rank0 = params["embed"]["table"][torch.from_numpy(prompts).to(dev).long()]
+
+    on_gpu = dev.type == "cuda"
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.inference_mode():
+        greedy, batch_s = serve.run_batch(cfg, params, prompts, gen_len, n_req, plan)
+        eng, results, metrics = serve.run_continuous(cfg, params, prompts, gen_len,
+                                                     n_slots, plan=plan)
+        y0 = salr.apply_salr(x_rank0, rank0, backend="kernel")
+        if on_gpu:
+            torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_gpu else 0
+    forwards = gen_len + metrics["n_prefills"] + metrics["n_decode_ticks"]
+    # 7 SALR projections per layer per forward (210 at 30 layers)
+    expected = {"salr_spmm": 7 * cfg.n_layers * forwards, "bitmap_spmm": 1,
+                "paged_gqa_attention": cfg.n_layers * metrics["n_decode_ticks"]}
+    print(f"phase 3: batch engine: {greedy.size} tokens in {batch_s:.3f}s "
+          f"({greedy.size / batch_s:.1f} tok/s)")
+    print(f"phase 3: continuous engine: {metrics['total_tokens']} tokens in "
+          f"{metrics['wall_s']:.3f}s ({metrics['tok_s']:.1f} tok/s), ttft mean "
+          f"{metrics['ttft_mean_s']:.4f}s p50 {metrics['ttft_p50_s']:.4f}s, prefix hit rate "
+          f"{metrics['prefix_hit_rate']:.4f}, prefills {metrics['n_prefills']}, decode ticks "
+          f"{metrics['n_decode_ticks']}, pages/request {metrics['pages_per_request_mean']}")
+    print(f"phase 3: peak device memory {peak} bytes")
+    rows.append({"main_path": True, "batch_tokens": int(greedy.size), "batch_s": batch_s,
+                 "engine": {k: v for k, v in metrics.items() if k != "plan"},
+                 "peak_bytes": peak, "param_bytes": nbytes, "compress_s": init_s,
+                 "launches": counts})
+
+    # outputs: shape, vocabulary, finiteness, engine vs greedy
+    if greedy.shape != (n_req, gen_len) or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all():
+        fail(f"batch engine tokens: shape {greedy.shape} or out of vocabulary")
+    for i in range(n_req):
+        toks = results[i].tokens
+        if len(toks) != gen_len or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"engine request {i}: {len(toks)} tokens or out of vocabulary")
+    if not torch.isfinite(y0).all():
+        fail("rank-0 layer output not finite")
+    with torch.inference_mode():
+        pt = torch.from_numpy(prompts[:2]).to(dev)
+        lk, _ = M.prefill(params, cfg, pt, plan=plan)
+        lr, _ = M.prefill(params, cfg, pt, plan=execplan.resolve_plan(cfg, backend="reference"))
+        report = serve.parity_report(cfg, params, prompts, greedy, results, plan)
+        # planted faults, one per projection shape: a kernel that drops
+        # the adapter term at that shape, in every layer
+        faults = {f"{'/'.join(names)} adapter term dropped": rel_l2(
+            torch, M.prefill(drop_adapters(torch, params, names), cfg, pt, plan=plan)[0], lr)
+            for names in (("wk", "wv"), ("down",))}
+    if not torch.isfinite(lk).all() or not torch.isfinite(lr).all():
+        fail("prefill logits not finite")
+    ref_err = rel_l2(torch, lk, lr)
+    print(f"phase 3: prefill logits, kernel route vs reference route: rel-L2 {ref_err:.4e} "
+          f"(limit {ROUTE_TOL:.0e}); planted faults: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in faults.items()))
+    if not ref_err <= ROUTE_TOL:
+        fail(f"kernel route strays from the reference formulation: rel-L2 {ref_err:.3e}")
+    if not min(faults.values()) > ROUTE_TOL:
+        fail(f"route limit {ROUTE_TOL:.0e} does not reject every planted fault")
+    for rid, step, gap, limit, tie in report:
+        print(f"phase 3: request {rid} diverges from greedy_generate at step {step}: "
+              f"top-2 gap {gap:.5g}, near-tie limit {limit:.5g} -> "
+              f"{'near-tie, accepted' if tie else 'NOT a near-tie'}")
+    if not all(r[4] for r in report):
+        fail("engine tokens diverge from greedy_generate away from a near-tie")
+    print(f"phase 3: parity: {n_req - len(report)}/{n_req} requests equal greedy_generate "
+          f"exactly, {len(report)} diverge at near-ties")
+    rows[-1].update(kernel_vs_reference_rel_l2=ref_err, planted_faults_rel_l2=faults,
+                    divergences=report)
+    if on_gpu:
+        rows[-1]["decode_tick"] = tick_profile(torch, eng, prompts)
+    return counts, expected
+
+
+def drop_adapters(torch, params, names: tuple):
+    """A copy of ``params`` in which projections ``names`` of every layer
+    lose their adapter term (LoRA and residual B set to zero)."""
+    import dataclasses
+
+    def drop(ad):
+        return None if ad is None else dataclasses.replace(ad, b=torch.zeros_like(ad.b))
+    layers = []
+    for lp in params["layers"]:
+        lp = {k: dict(v) if isinstance(v, dict) else v for k, v in lp.items()}
+        for part in ("mixer", "mlp"):
+            for name in set(names) & set(lp[part]):
+                lin = lp[part][name]
+                lp[part][name] = dataclasses.replace(lin, lora=drop(lin.lora),
+                                                     res=drop(lin.res))
+        layers.append(lp)
+    return {**params, "layers": layers}
+
+
+def tick_profile(torch, eng, prompts) -> dict:
+    """Where a decode tick's time goes: the continuous engine with all
+    slots busy, ``n`` ticks timed on the host clock, then three more
+    windows of ``n`` ticks traced by the profiler (device activity only;
+    the trace holding the most device records is kept, as a trace can
+    miss some) for the device-busy share and the device time per kernel
+    family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.engine import Request
+
+    n_slots, n, windows = eng.ecfg.n_slots, 6, 3
+    eng.reset()
+    for i in range(n_slots):
+        eng.submit(Request(rid=i, prompt=tuple(int(t) for t in prompts[i]),
+                           max_new_tokens=(windows + 1) * n + n_slots + 1))
+    with torch.inference_mode():
+        for _ in range(n_slots):                 # admissions, one per tick
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        best: tuple = (-1, {})
+        for _ in range(windows):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    eng.step()
+                torch.cuda.synchronize()
+            by_name: dict = {}
+            counts: dict = {}
+            device_us(torch, prof, by_name, counts)
+            if sum(counts.values()) > best[0]:
+                best = (sum(counts.values()), by_name)
+    by_name = best[1]
+    busy_ms = sum(by_name.values()) / n / 1e3
+    families = {"salr_spmm": ("salr_spmm_kernel", "adapter_u_kernel"),
+                "paged_gqa_attention": ("paged_gqa_kernel",)}
+    split = {f: 0.0 for f in (*families, "other")}
+    for name, us in by_name.items():
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
+                   "other")
+        split[fam] += us / n / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"slots_active": n_slots, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_records": best[0],
+           "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+           "device_ms_by_family": split,
+           "top_kernels_ms": {k: v / n / 1e3 for k, v in top}}
+    print(f"phase 3: decode tick ({n_slots} slots): {wall_ms:.3f} ms wall, device busy "
+          f"{busy_ms:.3f} ms, by family "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    return out
+
+
+def _tensors(obj):
+    import dataclasses
+
+    import torch
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", help="write every measurement to this JSON file")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, ops
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"phase 1: card {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    build_s = build.build_all()
+    for name in build.KERNELS:
+        build.load(name)
+    print(f"phase 1: built {', '.join(build.KERNELS)} in {build_s:.2f}s")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    timer = Timer(torch)
+    rows: list = []
+    with torch.inference_mode():
+        spmm = spmm_checks(torch, timer, gen, rows)
+        paged = paged_checks(torch, timer, gen, rows)
+    print("phase 2: every kernel agrees with its plain version")
+
+    counts, expected = main_path(torch, torch.device("cuda"), args.seed, rows)
+    for name, n in counts.items():
+        if n == 0 or n != expected[name]:
+            fail(f"main path launched {name} {n} times, expected {expected[name]}")
+    print(f"phase 4: main-path launches {counts}")
+
+    sources = {"salr_spmm": ("src/repro_torch/csrc/salr_spmm.cu",
+                             "src/repro/kernels/salr_spmm.py:74", spmm["salr_spmm"]),
+               "bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
+                               "src/repro/kernels/bitmap_spmm.py:68", spmm["bitmap_spmm"]),
+               "paged_gqa_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                       "src/repro/kernels/paged_attention.py:98", paged)}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                "shape": s["shape"]}
+               for name, (src, rep, s) in sources.items()]
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": card, "build_s": build_s,
+                                              "rows": rows,
+                                              "kernels": kernels}, indent=1))
+    print(f"total {time.perf_counter() - t_start:.1f}s")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""Weight carry-over from the reference package.
+
+``params_from_reference`` takes the reference's parameters as a flat
+``{keystr path: numpy array}`` dict -- the keys ``jax.tree_util.keystr``
+gives, e.g. ``['groups'][0][0]['mixer']['wq'].base.words`` with a
+leading repeats axis, which are also the keys ``repro.checkpoint`` writes
+to ``arrays.npz`` -- and returns the port's params.  The port never sees
+a JAX object: tests build the dict from the reference's params.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.adapters import LoRAAdapter
+from repro_torch.core.bitmap import TiledBitmapWeight
+from repro_torch.core.salr import SALRLinear
+from repro_torch.device import resolve_device
+
+
+def to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> torch, bit-exact: bf16 (an ml_dtypes extension type, or the
+    fieldless 2-byte void an npz round trip leaves) is bit-cast through
+    16-bit integers; uint32 words become int32 with the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        if a.dtype.itemsize != 2:
+            raise TypeError(f"cannot carry dtype {a.dtype} over")
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device) -> SALRLinear:
+    def leaf(suffix):
+        return to_tensor(flat[key + suffix][r], device)
+
+    words, values = leaf(".base.words"), leaf(".base.values")
+    n_tiles, wpt = words.shape[1], words.shape[2]
+    base = TiledBitmapWeight(words=words, values=values, cols=n_tiles * wpt * 32,
+                             tile=wpt * 32, cap_t=values.shape[-1])
+    lora = LoRAAdapter(a=leaf(".lora.a"), b=leaf(".lora.b"), scale=1.0)
+    res = (LoRAAdapter(a=leaf(".res.a"), b=leaf(".res.b"), scale=1.0)
+           if key + ".res.a" in flat else None)
+    bias = leaf(".bias") if key + ".bias" in flat else None
+    if lora.b.shape[1] != d_out:
+        raise ValueError(f"{key}: adapter width {lora.b.shape[1]} != d_out {d_out}")
+    return SALRLinear(base=base, lora=lora, res=res, bias=bias, d_in=words.shape[0],
+                      d_out=d_out, backend=cfg.salr.backend)
+
+
+def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
+    """The port's params from the reference's flat keystr dict.  The
+    repeats axis of every stacked leaf is unstacked into per-layer
+    entries; tiled-bitmap static fields derive from the shapes (tile =
+    words-per-tile x 32, cap_t from the values, cols = n_tiles x tile),
+    d_out from the config, and adapter scales are 1.0 (alpha = rank)."""
+    dev = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    widths = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,
+              "wv": cfg.n_kv_heads * hd, "wo": cfg.d_model,
+              "gate": cfg.d_ff, "up": cfg.d_ff, "down": cfg.d_model}
+    layers = []
+    for gi, g in enumerate(cfg.layer_groups):
+        for r in range(g.repeats):
+            for pi, kind in enumerate(g.pattern):
+                if kind != "attn":
+                    raise NotImplementedError(f"mixer {kind!r} is not yet ported")
+                pre = f"['groups'][{gi}][{pi}]"
+
+                def lin(sub, name, pre=pre, r=r):
+                    return _linear(flat, f"{pre}['{sub}']['{name}']", r,
+                                   widths[name], cfg, dev)
+
+                layers.append({
+                    "mixer": {"norm": {"scale": to_tensor(
+                                  flat[pre + "['mixer']['norm']['scale']"][r], dev)},
+                              **{n: lin("mixer", n) for n in ("wq", "wk", "wv", "wo")}},
+                    "mlp_norm": {"scale": to_tensor(flat[pre + "['mlp_norm']['scale']"][r],
+                                                    dev)},
+                    "mlp": {n: lin("mlp", n) for n in ("gate", "up", "down")}})
+    return {"embed": {"table": to_tensor(flat["['embed']['table']"], dev)},
+            "layers": layers,
+            "final_norm": {"scale": to_tensor(flat["['final_norm']['scale']"], dev)},
+            "lm_head": {"w": to_tensor(flat["['lm_head']['w']"], dev)}}

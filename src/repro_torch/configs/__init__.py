@@ -1,0 +1,6 @@
+"""Architecture configs ported so far."""
+from repro_torch.configs.base import (PORTED, SHAPES, ArchConfig, LayerGroup,
+                                      SALRModelConfig, ShapeSpec, get, register)
+
+__all__ = ["PORTED", "SHAPES", "ArchConfig", "LayerGroup",
+           "SALRModelConfig", "ShapeSpec", "get", "register"]

@@ -1,0 +1,152 @@
+"""Tiled bitmap encoding of pruned weights (the kernels' storage format).
+
+Layout, kept bit for bit from the reference (``repro.core.bitmap``), so
+imported encodings decode the same way:
+
+  * ``words``  : (rows, n_tiles, tile//32) -- per (row, column-tile) cell
+    the bitmap packed 32 columns per word, bit j of word w = column
+    32w+j of the tile (LSB first).  Held as ``torch.int32`` carrying the
+    uint32 bit pattern: torch implements no shifts on uint32.
+  * ``values`` : (rows, n_tiles, cap_t) -- the cell's kept values in
+    column order, padded to the static capacity ``cap_t``; a set bit's
+    slot is the exclusive popcount of the bits before it, clamped to
+    ``cap_t - 1``.  Cells whose population exceeds ``cap_t`` spill their
+    smallest-magnitude entries, returned so callers fold them into the
+    SVD residual (W = W_hat + E stays exact).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+_MASK32 = (1 << 32) - 1
+
+
+def round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(32, dtype=torch.int64, device=device)
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Pack a boolean (rows, cols) mask into int32 words (rows, ceil(cols/32))
+    holding the uint32 bit patterns."""
+    rows, cols = mask.shape
+    padded = round_up(cols, 32)
+    m = torch.nn.functional.pad(mask.to(torch.int64), (0, padded - cols))
+    m = m.reshape(rows, padded // 32, 32)
+    words = (m << _shifts(mask.device)).sum(dim=-1)          # < 2**32
+    return (words - (words >= 2 ** 31).to(torch.int64) * 2 ** 32).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, cols: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`; returns boolean (rows, cols)."""
+    rows, n_words = words.shape
+    w = words.to(torch.int64) & _MASK32
+    bits = (w[:, :, None] >> _shifts(words.device)) & 1
+    return bits.reshape(rows, n_words * 32)[:, :cols].to(torch.bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class BitmapWeight:
+    """Row-encoded bitmap matrix (one cell per row): the building block of
+    the tiled format."""
+    words: torch.Tensor     # int32 (rows, ceil(cols/32))
+    values: torch.Tensor    # (rows, cap)
+    cols: int
+    cap: int
+
+
+def encode(w_hat: torch.Tensor, mask: torch.Tensor, cap: int):
+    """Encode ``w_hat`` (already-masked weights) under ``mask``.
+
+    Returns (BitmapWeight, spill): ``spill`` holds the entries that did
+    not fit in ``cap`` (smallest-magnitude entries of overflowing rows),
+    so ``decode(bw) + spill == w_hat``."""
+    rows, cols = w_hat.shape
+    mag = w_hat.abs() * mask
+    order = torch.argsort(-mag, dim=1, stable=True)
+    mag_rank = torch.argsort(order, dim=1, stable=True)
+    kept = mask & (mag_rank < cap)
+    zero = torch.zeros((), dtype=w_hat.dtype, device=w_hat.device)
+    spill = torch.where(mask & ~kept, w_hat, zero)
+    kept_i = kept.to(torch.int64)
+    slot = (torch.cumsum(kept_i, dim=1) - kept_i).clamp(max=cap - 1)
+    rows_idx = torch.arange(rows, device=w_hat.device)[:, None].expand(rows, cols)
+    values = torch.zeros((rows, cap), dtype=w_hat.dtype, device=w_hat.device)
+    # kept slots are distinct (a row keeps at most ``cap`` entries)
+    values[rows_idx[kept], slot[kept]] = w_hat[kept]
+    return BitmapWeight(words=pack_bits(kept), values=values, cols=cols,
+                        cap=cap), spill
+
+
+def decode(bw: BitmapWeight) -> torch.Tensor:
+    """Dense decode: exclusive-popcount slots clamped to ``cap - 1``."""
+    bits = unpack_bits(bw.words, bw.cols)
+    b = bits.to(torch.int64)
+    slot = (torch.cumsum(b, dim=1) - b).clamp(max=bw.cap - 1)
+    gathered = torch.gather(bw.values, 1, slot)
+    return torch.where(bits, gathered, torch.zeros((), dtype=bw.values.dtype,
+                                                   device=bw.values.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledBitmapWeight:
+    """Bitmap matrix tiled along columns: each (row, column-tile) cell
+    stores its own compact value segment of static capacity ``cap_t``."""
+    words: torch.Tensor     # int32 (rows, n_tiles, tile//32)
+    values: torch.Tensor    # (rows, n_tiles, cap_t)
+    cols: int
+    tile: int
+    cap_t: int
+
+    @property
+    def rows(self) -> int:
+        return self.words.shape[0]
+
+    @property
+    def n_tiles(self) -> int:
+        return self.words.shape[1]
+
+
+def tiled_capacity(tile: int, p: float, slack_sigmas: float = 4.0,
+                   align: int = 8) -> int:
+    """Per-tile capacity: mean + slack_sigmas * binomial std, aligned."""
+    mean = tile * (1.0 - p)
+    std = math.sqrt(tile * p * (1.0 - p))
+    return min(tile, round_up(int(math.ceil(mean + slack_sigmas * std)), align))
+
+
+def default_tile(cols: int, tile: int = 256) -> int:
+    """Kernel N-tile for a matrix with ``cols`` columns: a multiple of 32
+    no wider than ``tile`` (columns are zero-padded to a tile multiple)."""
+    return min(tile, round_up(cols, 32))
+
+
+def tile_encode(w_hat: torch.Tensor, mask: torch.Tensor, tile: int, cap_t: int):
+    """Encode into the tiled format.  Returns (TiledBitmapWeight, spill)."""
+    rows, cols = w_hat.shape
+    if cols % tile or tile % 32:
+        raise ValueError(f"cols={cols} must be a multiple of tile={tile}, "
+                         "itself a multiple of 32")
+    n_tiles = cols // tile
+    bw, spill = encode(w_hat.reshape(rows * n_tiles, tile),
+                       mask.reshape(rows * n_tiles, tile), cap_t)
+    tbw = TiledBitmapWeight(
+        words=bw.words.reshape(rows, n_tiles, tile // 32),
+        values=bw.values.reshape(rows, n_tiles, cap_t),
+        cols=cols, tile=tile, cap_t=cap_t)
+    return tbw, spill.reshape(rows, cols)
+
+
+def tile_decode(tbw: TiledBitmapWeight) -> torch.Tensor:
+    """Dense (rows, cols) decode of the tiled format."""
+    rows, n_tiles = tbw.rows, tbw.n_tiles
+    bw = BitmapWeight(words=tbw.words.reshape(rows * n_tiles, tbw.tile // 32),
+                      values=tbw.values.reshape(rows * n_tiles, tbw.cap_t),
+                      cols=tbw.tile, cap=tbw.cap_t)
+    return decode(bw).reshape(rows, tbw.cols)

@@ -1,0 +1,34 @@
+"""Magnitude pruning: a static mask on the frozen base weights, mask
+application and residual extraction E = W - W_hat."""
+from __future__ import annotations
+
+import torch
+
+
+def magnitude_mask(w: torch.Tensor, p: float) -> torch.Tensor:
+    """Static magnitude mask keeping the largest (1-p) fraction of |w|.
+
+    Exactly ``round(p * size)`` entries are pruned, ties broken by index
+    (a stable argsort), so downstream capacity planning is deterministic.
+    """
+    flat = w.abs().reshape(-1)
+    n = flat.numel()
+    k_prune = int(round(float(p) * n))
+    if k_prune <= 0:
+        return torch.ones_like(w, dtype=torch.bool)
+    if k_prune >= n:
+        return torch.zeros_like(w, dtype=torch.bool)
+    order = torch.argsort(flat, stable=True)
+    keep = torch.ones(n, dtype=torch.bool, device=w.device)
+    keep[order[:k_prune]] = False
+    return keep.reshape(w.shape)
+
+
+def apply_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """W_hat = W * mask."""
+    return torch.where(mask, w, torch.zeros((), dtype=w.dtype, device=w.device))
+
+
+def residual(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """E = W - W_hat = the pruned-away entries."""
+    return torch.where(mask, torch.zeros((), dtype=w.dtype, device=w.device), w)

@@ -1,0 +1,176 @@
+"""Checked wrappers around the CUDA kernels.
+
+Each wrapper flattens leading dims, checks device, dtype, shape and
+contiguity, and then launches its kernel for CUDA tensors or runs the
+plain PyTorch version (``ref``) for CPU tensors; any other device
+raises.  Nothing on the GPU falls back to the plain version.  The
+wrappers are forward-only in this slice: called on inputs that require
+grad they raise (the autograd Functions come with the fine-tuning slice).
+
+``LAUNCHES`` counts kernel launches per wrapper (one per call that
+reached the GPU), so a run can show its main path went through the
+kernels; ``reset_launches`` zeroes it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitmap as bm
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"salr_spmm": 0, "bitmap_spmm": 0, "paged_gqa_attention": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _forward_only(name: str, *ts) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{name} is forward-only in this slice; run it "
+                           "under torch.inference_mode() or no_grad()")
+
+
+def _placement(name: str, x: torch.Tensor, *ts) -> str:
+    """'cpu' or 'cuda' for a call whose tensors all share x's device."""
+    for t in ts:
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {x.device} and {t.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
+
+
+def _check_cuda(name: str, dtype, *ts) -> int:
+    """Contiguity and operand dtype of a launch; returns the dtype code."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported (float32, bfloat16)")
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return _DTYPE_CODES[dtype]
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    lib = build.load(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, name)(*args, device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({lib.error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+
+
+def _flatten(x: torch.Tensor) -> tuple:
+    return x.reshape(-1, x.shape[-1]).contiguous(), x.shape[:-1]
+
+
+def _check_tiled(name: str, x2: torch.Tensor, tbw: bm.TiledBitmapWeight) -> None:
+    if tbw.rows != x2.shape[1]:
+        raise ValueError(f"{name}: x has K={x2.shape[1]}, weight {tbw.rows} rows")
+    if tbw.tile % 32 or tbw.tile > 256 or tbw.n_tiles * tbw.tile != tbw.cols:
+        raise ValueError(f"{name}: tile {tbw.tile} must be a multiple of 32 "
+                         f"up to 256 covering cols={tbw.cols}")
+    if tbw.cap_t % 8 or not 0 < tbw.cap_t <= tbw.tile:
+        raise ValueError(f"{name}: cap_t {tbw.cap_t} must be a multiple of 8 "
+                         f"up to the tile")
+    if tbw.words.dtype != torch.int32 or tbw.values.dtype != x2.dtype:
+        raise TypeError(f"{name}: words must be int32 and values {x2.dtype}")
+
+
+def _pad_bcat(b_cat: torch.Tensor, cols: int) -> torch.Tensor:
+    """Zero-pad B_cat's output dim up to the (tile-padded) encoded width;
+    padded columns produce zeros the caller slices off."""
+    if b_cat.shape[1] < cols:
+        b_cat = torch.nn.functional.pad(b_cat, (0, cols - b_cat.shape[1]))
+    return b_cat
+
+
+def bitmap_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight) -> torch.Tensor:
+    """y = x @ W_hat with the fused bitmap-decode GEMM.  x: (..., K);
+    returns (..., tbw.cols)."""
+    name = "bitmap_spmm"
+    _forward_only(name, x, tbw.values)
+    x2, lead = _flatten(x)
+    _check_tiled(name, x2, tbw)
+    if _placement(name, x2, tbw.words, tbw.values) == "cpu":
+        y = ref.bitmap_spmm_ref(x2, tbw)
+    else:
+        code = _check_cuda(name, x2.dtype, tbw.words, tbw.values)
+        m, k = x2.shape
+        y = torch.empty((m, tbw.cols), dtype=x2.dtype, device=x2.device)
+        if m:
+            _launch(name, x2.device, x2.data_ptr(), tbw.words.data_ptr(),
+                    tbw.values.data_ptr(), y.data_ptr(), m, k, tbw.n_tiles,
+                    tbw.tile // 32, tbw.cap_t, code)
+    return y.reshape(*lead, tbw.cols)
+
+
+def salr_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight,
+                a_cat: torch.Tensor, b_cat: torch.Tensor) -> torch.Tensor:
+    """y = x @ W_hat + (x @ A_cat) @ B_cat, the full SALR op.  x: (..., K);
+    a_cat (K, R), b_cat (R, <= cols); returns (..., tbw.cols)."""
+    name = "salr_spmm"
+    _forward_only(name, x, tbw.values, a_cat, b_cat)
+    x2, lead = _flatten(x)
+    _check_tiled(name, x2, tbw)
+    b_cat = _pad_bcat(b_cat, tbw.cols)
+    r = a_cat.shape[1]
+    if a_cat.shape[0] != tbw.rows or b_cat.shape != (r, tbw.cols) or r == 0:
+        raise ValueError(f"{name}: adapter shapes {tuple(a_cat.shape)} / "
+                         f"{tuple(b_cat.shape)} do not fit ({tbw.rows}, R>0) / "
+                         f"(R, {tbw.cols})")
+    if _placement(name, x2, tbw.words, tbw.values, a_cat, b_cat) == "cpu":
+        y = ref.salr_spmm_ref(x2, tbw, a_cat, b_cat)
+    else:
+        if a_cat.dtype != x2.dtype or b_cat.dtype != x2.dtype:
+            raise TypeError(f"{name}: adapters must be {x2.dtype}")
+        code = _check_cuda(name, x2.dtype, tbw.words, tbw.values, a_cat, b_cat)
+        m, k = x2.shape
+        u = torch.empty((m, r), dtype=x2.dtype, device=x2.device)
+        y = torch.empty((m, tbw.cols), dtype=x2.dtype, device=x2.device)
+        if m:
+            _launch(name, x2.device, x2.data_ptr(), tbw.words.data_ptr(),
+                    tbw.values.data_ptr(), a_cat.data_ptr(), b_cat.data_ptr(),
+                    u.data_ptr(), y.data_ptr(), m, k, r, tbw.n_tiles,
+                    tbw.tile // 32, tbw.cap_t, code)
+    return y.reshape(*lead, tbw.cols)
+
+
+def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, page_table: torch.Tensor,
+                        pos: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention over paged K/V pools.
+
+    q: (B, 1, H, d); pools: (P, page_size, KH, d); page_table:
+    (B, max_pages) int32, entry j = pool page of positions
+    [j*page_size, (j+1)*page_size), page 0 the null page; pos: (B,) int32,
+    last live position per slot (inclusive).  Returns (B, 1, H, d)."""
+    name = "paged_gqa_attention"
+    _forward_only(name, q, k_pool, v_pool)
+    b, one, h, d = q.shape
+    p_total, ps, kh, dk = k_pool.shape
+    if (one != 1 or dk != d or v_pool.shape != k_pool.shape or h % kh
+            or page_table.shape[0] != b or pos.shape != (b,)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, page "
+                         f"table {tuple(page_table.shape)}, pos {tuple(pos.shape)}")
+    if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"{name}: page_table and pos must be int32")
+    if _placement(name, q, k_pool, v_pool, page_table, pos) == "cpu":
+        return ref.paged_gqa_attention_ref(q, k_pool, v_pool, page_table, pos)
+    if h // kh > 8 or d not in (32, 64, 128):
+        raise ValueError(f"{name}: kernel takes up to 8 query heads per KV "
+                         f"head and head dim 32/64/128 (got {h // kh}, {d})")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"{name}: pools must be {q.dtype}")
+    code = _check_cuda(name, q.dtype, q, k_pool, v_pool, page_table, pos)
+    out = torch.empty_like(q)
+    if b:
+        _launch(name, q.device, q.data_ptr(), k_pool.data_ptr(),
+                v_pool.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
+                out.data_ptr(), b, h, kh, d, ps, page_table.shape[1], code)
+    return out

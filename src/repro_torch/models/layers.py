@@ -1,0 +1,112 @@
+"""Model building blocks: SALR-aware linears, RMSNorm, RoPE, SwiGLU MLP,
+embedding and LM head.
+
+Every projection goes through ``init_linear``/``apply_linear``: a linear
+of a compressed target family is a ``SALRLinear`` (frozen tiled-bitmap
+base + fused adapters), any other linear a plain ``{"w": (d_in, d_out)}``.
+Weights are drawn from an explicit CPU ``torch.Generator`` (the same
+draws on every device) and then moved to ``device``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.salr import SALRConfig, SALRLinear, apply_salr, compress_linear
+
+
+def model_dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def salr_cfg_for(cfg: ArchConfig) -> SALRConfig:
+    s = cfg.salr
+    return SALRConfig(sparsity=s.sparsity, method=s.method,
+                      lora_rank=s.lora_rank, res_rank=s.res_rank,
+                      dtype=cfg.dtype, backend=s.backend)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, cfg: ArchConfig,
+                target: str, device):
+    """A model linear, W ~ N(0, 1/d_in): SALR-compressed when the target
+    family is enabled."""
+    w = (torch.randn((d_in, d_out), generator=gen) / math.sqrt(d_in)).to(device)
+    if cfg.salr.enabled and target in cfg.salr.targets:
+        return compress_linear(gen, w, salr_cfg_for(cfg))
+    return {"w": w.to(model_dtype(cfg))}
+
+
+def apply_linear(p, x: torch.Tensor, route=None, backend=None) -> torch.Tensor:
+    """SALR layers follow the explicit ``backend``, else the threaded
+    phase ``route`` (``core.execplan.PhaseRoute``), else the layer's own."""
+    if isinstance(p, SALRLinear):
+        if backend is None and route is not None:
+            backend = route.linear
+        return apply_salr(x, p, backend=backend)
+    return x @ p["w"]
+
+
+def init_rmsnorm(d: int, cfg: ArchConfig, device):
+    return {"scale": torch.ones(d, dtype=model_dtype(cfg), device=device)}
+
+
+def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Statistics in f32, the scale multiplied in the model dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S).  Angles in f32, the rotation
+    in the activation dtype."""
+    hd = x.shape[-1]
+    ang = positions[..., None].float() * rope_freqs(hd, theta, x.device)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp kind {kind!r} is not yet ported")
+    d, f = cfg.d_model, cfg.d_ff
+    return {"gate": init_linear(gen, d, f, cfg, "mlp", device),
+            "up": init_linear(gen, d, f, cfg, "mlp", device),
+            "down": init_linear(gen, f, d, cfg, "mlp", device)}
+
+
+def apply_mlp(p, x: torch.Tensor, route=None) -> torch.Tensor:
+    h = torch.nn.functional.silu(apply_linear(p["gate"], x, route)) * \
+        apply_linear(p["up"], x, route)
+    return apply_linear(p["down"], h, route)
+
+
+def padded_vocab(cfg: ArchConfig, mult: int = 256) -> int:
+    return ((cfg.vocab_size + mult - 1) // mult) * mult
+
+
+def init_embedding(gen: torch.Generator, cfg: ArchConfig, device):
+    emb = torch.randn((padded_vocab(cfg), cfg.d_model), generator=gen) * 0.02
+    return {"table": emb.to(device=device, dtype=model_dtype(cfg))}
+
+
+def apply_embedding(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def init_lm_head(gen: torch.Generator, cfg: ArchConfig, device):
+    w = torch.randn((cfg.d_model, padded_vocab(cfg)), generator=gen) / math.sqrt(cfg.d_model)
+    return {"w": w.to(device=device, dtype=model_dtype(cfg))}
+
+
+def apply_lm_head(p, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"]

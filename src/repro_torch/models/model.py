@@ -1,0 +1,198 @@
+"""Model assembly for the dense family: parameters, the serving entry
+points (``prefill``, ``decode_step``) and the slot / paged-slot caches of
+the continuous-batching engine.
+
+Parameters are plain dicts: ``{"embed": {"table"}, "layers": [...],
+"final_norm": {"scale"}, "lm_head": {"w"}}`` with one entry per decoder
+layer in execution order (a Python loop where the reference scans over
+stacked repeats).  Caches mirror that: ``{"layers": [{"mixer": cache}],
+"page_table": ...}``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import execplan
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_embedding, apply_lm_head, apply_mlp,
+                                       apply_rmsnorm, init_embedding, init_lm_head,
+                                       init_mlp, init_rmsnorm, model_dtype)
+
+
+def layer_kinds(cfg: ArchConfig) -> list:
+    """(mixer kind, mlp kind) of every decoder layer in execution order."""
+    if cfg.family != "dense" or cfg.encoder_groups or cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not yet ported")
+    out = []
+    for g in cfg.layer_groups:
+        mlp = g.mlp if g.mlp is not None else cfg.mlp
+        for _ in range(g.repeats):
+            for kind in g.pattern:
+                if kind != "attn":
+                    raise NotImplementedError(f"mixer {kind!r} is not yet ported")
+                out.append((kind, mlp))
+    return out
+
+
+def _route(plan: Optional[execplan.ExecutionPlan], cfg: ArchConfig, phase: str):
+    return (plan or execplan.current_override()
+            or execplan.resolve_plan(cfg)).route(phase)
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None):
+    """Seeded random weights, every compressible linear compressed through
+    ``compress_linear``.  Runs on ``cuda`` unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    layers = []
+    for _, mlp in layer_kinds(cfg):
+        layers.append({"mixer": attn.init_gqa(gen, cfg, dev),
+                       "mlp_norm": init_rmsnorm(cfg.d_model, cfg, dev),
+                       "mlp": init_mlp(gen, cfg, mlp, dev)})
+    return {"embed": init_embedding(gen, cfg, dev),
+            "layers": layers,
+            "final_norm": init_rmsnorm(cfg.d_model, cfg, dev),
+            "lm_head": init_lm_head(gen, cfg, dev)}
+
+
+def params_device(params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def apply_layer(p, x, cfg: ArchConfig, *, mode: str, positions=None, cache=None,
+                pos=None, route=None, page_table=None, prefix_cache=None,
+                q_offset: int = 0):
+    """One block: attention then SwiGLU MLP.  Returns (x, new_cache)."""
+    x, new_mixer = attn.apply_gqa(
+        p["mixer"], x, cfg, positions=positions, mode=mode,
+        cache=cache["mixer"] if cache else None, pos=pos, route=route,
+        page_table=page_table,
+        prefix=prefix_cache["mixer"] if prefix_cache else None, q_offset=q_offset)
+    x = x + apply_mlp(p["mlp"], apply_rmsnorm(p["mlp_norm"], x, cfg.norm_eps), route)
+    return x, {"mixer": new_mixer}
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, logit_index=None,
+            plan: Optional[execplan.ExecutionPlan] = None, prefix_cache=None,
+            pos_offset: int = 0):
+    """Process the prompt; returns (one-position logits (B, 1, V), cache).
+
+    Logits are taken at the last position, or at ``logit_index`` (scalar
+    or (B,)) for right-padded prompts.  ``prefix_cache`` (dense batch=1,
+    from ``gather_prefix_cache``) + ``pos_offset``: continuation prefill
+    over a shared prefix covering positions [0, pos_offset); ``tokens``
+    then hold only the suffix and the returned cache covers only it."""
+    route = _route(plan, cfg, "prefill")
+    x = apply_embedding(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = (pos_offset + torch.arange(s, device=x.device)).expand(b, s)
+    caches = []
+    for i, lp in enumerate(params["layers"]):
+        pc = prefix_cache["layers"][i] if prefix_cache else None
+        x, nc = apply_layer(lp, x, cfg, mode="prefill", positions=positions,
+                            route=route, prefix_cache=pc, q_offset=pos_offset)
+        caches.append(nc)
+    x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if logit_index is None:
+        x_last = x[:, -1:]
+    else:
+        idx = torch.as_tensor(logit_index, device=x.device).long().expand(b)
+        x_last = x[torch.arange(b, device=x.device), idx][:, None]
+    return apply_lm_head(params["lm_head"], x_last), {"layers": caches}
+
+
+def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos,
+                plan: Optional[execplan.ExecutionPlan] = None):
+    """One token step.  tokens: (B, 1); pos: absolute position of this
+    token, a scalar or a (B,) vector (each slot at its own position).
+    Writes the step's K/V into ``cache`` in place; returns (logits, cache)."""
+    route = _route(plan, cfg, "decode")
+    x = apply_embedding(params["embed"], tokens)
+    pos = attn.pos_vector(pos, x.shape[0], x.device)
+    page_table = cache.get("page_table")
+    for lp, lc in zip(params["layers"], cache["layers"]):
+        x, _ = apply_layer(lp, x, cfg, mode="decode", positions=pos[:, None],
+                           cache=lc, pos=pos, route=route, page_table=page_table)
+    x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return apply_lm_head(params["lm_head"], x), cache
+
+
+def init_cache(cfg: ArchConfig, batch: int, ctx: int, device):
+    """Dense decode cache: one (batch, ctx) KVCache per layer."""
+    dt = model_dtype(cfg)
+    return {"layers": [{"mixer": attn.init_gqa_cache(cfg, batch, ctx, dt, device)}
+                       for _ in layer_kinds(cfg)]}
+
+
+def init_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, device):
+    """Decode cache of a continuous-batching slot batch: row b serves one
+    request at a time and is overwritten by the next."""
+    return init_cache(cfg, n_slots, ctx, device)
+
+
+def insert_cache_slot(cache, request_cache, slot: int):
+    """Write a batch=1 prefill cache into row ``slot`` at time offset 0
+    (in place).  Later positions keep the previous occupant's entries,
+    which decode masks by the slot's position."""
+    for lc, rc in zip(cache["layers"], request_cache["layers"]):
+        t = rc["mixer"].k.shape[1]
+        lc["mixer"].k[slot, :t] = rc["mixer"].k[0]
+        lc["mixer"].v[slot, :t] = rc["mixer"].v[0]
+    return cache
+
+
+def init_paged_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, *,
+                          page_size: int, n_pages: int, device):
+    """Paged decode cache: per layer one global K/V page pool, plus
+    ``page_table`` (n_slots, ceil(ctx/page_size)) int32.  Pool page 0 is
+    the reserved null page, so the all-zero table owns no pages."""
+    dt = model_dtype(cfg)
+    max_pages = -(-ctx // page_size)
+    return {"layers": [{"mixer": attn.init_paged_gqa_cache(cfg, n_pages, page_size,
+                                                           dt, device)}
+                       for _ in layer_kinds(cfg)],
+            "page_table": torch.zeros((n_slots, max_pages), dtype=torch.int32,
+                                      device=device)}
+
+
+def insert_paged_cache_slot(cache, request_cache, slot: int, start: int):
+    """Scatter a batch=1 dense prefill cache into the pool pages slot
+    ``slot`` owns (in place).  The slot's ``page_table`` row must be
+    written first: request position ``start + t`` lands at page
+    ``page_table[slot, (start+t) // page_size]``, offset ``% page_size``;
+    pad-tail positions past the allocation map to the null page."""
+    page_row = cache["page_table"][slot].long()
+    for lc, rc in zip(cache["layers"], request_cache["layers"]):
+        pool, req = lc["mixer"], rc["mixer"]
+        ps, t = pool.k.shape[1], req.k.shape[1]
+        positions = start + torch.arange(t, device=pool.k.device)
+        pages, off = page_row[positions // ps], positions % ps
+        pool.k[pages, off] = req.k[0].to(pool.k.dtype)
+        pool.v[pages, off] = req.v[0].to(pool.v.dtype)
+    return cache
+
+
+def gather_prefix_cache(cache, page_row: torch.Tensor):
+    """Gather the pool pages in ``page_row`` ((n_hit,) int) into a dense
+    batch=1 prefix cache for continuation prefill."""
+    layers = []
+    for lc in cache["layers"]:
+        pool = lc["mixer"]
+        k, v = pool.k[page_row], pool.v[page_row]
+        layers.append({"mixer": attn.KVCache(k=k.reshape(1, -1, *k.shape[2:]),
+                                             v=v.reshape(1, -1, *v.shape[2:]))})
+    return {"layers": layers}
+
+
+def clear_cache_slot(cache, slot: int):
+    """Zero row ``slot`` of a dense slot cache (in place).  Not needed for
+    correctness -- insert and position masking hide stale state -- but
+    useful for tests and debugging."""
+    for lc in cache["layers"]:
+        lc["mixer"].k[slot] = 0
+        lc["mixer"].v[slot] = 0
+    return cache

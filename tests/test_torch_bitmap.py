@@ -1,0 +1,133 @@
+"""The port's tiled-bitmap storage and compression against the reference
+(``repro.core``): bit-exact encodings from identical numpy inputs, and
+the residual adapter through delta_w within ``method:*``."""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bitmap as jbm
+from repro.core import prune as jprune
+from repro.core import salr as jsalr
+from repro_torch.bridge import to_tensor
+from repro_torch.core import bitmap as tbm
+from repro_torch.core import prune as tprune
+from repro_torch.core import salr as tsalr
+from repro_torch.core.quant import ERROR_BUDGETS
+
+BUDGET = ERROR_BUDGETS["method:bitmap"]
+
+
+def _words(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """Raw bits of a float tensor (bf16 via int16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy().view(np.int32)
+
+
+def _jbits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype == ml_dtypes.bfloat16 else a.view(np.int32)
+
+
+def _dense(rows, cols, seed, dtype=np.float32):
+    w = np.random.default_rng(seed).standard_normal((rows, cols)).astype(np.float32)
+    return (w / np.sqrt(rows)).astype(dtype)
+
+
+@pytest.mark.parametrize("cols", [1, 31, 32, 33, 96, 200])
+def test_pack_unpack_bits_match_reference(cols):
+    mask = np.random.default_rng(cols).random((5, cols)) < 0.5
+    words = tbm.pack_bits(torch.from_numpy(mask))
+    np.testing.assert_array_equal(_words(words), np.asarray(jbm.pack_bits(jnp.asarray(mask))))
+    np.testing.assert_array_equal(tbm.unpack_bits(words, cols).numpy(), mask)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile", [32, 96, 192, 256])
+def test_tile_encode_decode_bit_exact(tile, dtype):
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    cols = 2 * tile
+    w = _dense(24, cols, tile, np_dt)
+    mask = np.array(jprune.magnitude_mask(jnp.asarray(w), 0.5))
+    cap_t = jbm.tiled_capacity(tile, 0.45)          # small enough to spill
+    w_hat = np.where(mask, w, np.zeros((), np_dt))
+    jt, jspill = jbm.tile_encode(jnp.asarray(w_hat), jnp.asarray(mask), tile, cap_t)
+    tt, tspill = tbm.tile_encode(to_tensor(w_hat, "cpu"), torch.from_numpy(mask), tile, cap_t)
+    np.testing.assert_array_equal(_words(tt.words), np.asarray(jt.words))
+    np.testing.assert_array_equal(_bits(tt.values), _jbits(jt.values))
+    np.testing.assert_array_equal(_bits(tspill), _jbits(jspill))
+    np.testing.assert_array_equal(_bits(tbm.tile_decode(tt)), _jbits(jbm.tile_decode(jt)))
+    # decoding the reference's own encoding gives the reference's dense W_hat
+    imported = tbm.TiledBitmapWeight(words=to_tensor(np.asarray(jt.words), "cpu"),
+                                     values=to_tensor(np.asarray(jt.values), "cpu"),
+                                     cols=cols, tile=tile, cap_t=cap_t)
+    np.testing.assert_array_equal(_bits(tbm.tile_decode(imported)),
+                                  _jbits(jbm.tile_decode(jt)))
+    assert tbm.tiled_capacity(tile, 0.45) == cap_t
+    assert tbm.default_tile(cols) == jbm.default_tile(cols)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_magnitude_mask_ties_broken_by_index(dtype):
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    # coarse values: many exact ties, pruned in index order
+    w = (np.random.default_rng(3).integers(-4, 5, (16, 40)) / 4).astype(np_dt)
+    for p in (0.0, 0.3, 0.5, 1.0):
+        t = tprune.magnitude_mask(to_tensor(w, "cpu"), p).numpy()
+        j = np.asarray(jprune.magnitude_mask(jnp.asarray(w), p))
+        np.testing.assert_array_equal(t, j)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("d_in,d_out,rank", [(96, 96, 4), (96, 32, 4), (192, 96, 4),
+                                             (96, 192, 8), (64, 300, 8)])
+def test_compress_linear_matches_reference(d_in, d_out, rank):
+    w = _dense(d_in, d_out, d_in * 7 + d_out)
+    jcfg = jsalr.SALRConfig(sparsity=0.5, method="bitmap", lora_rank=rank, res_rank=rank,
+                            dtype="float32", backend="kernel")
+    tcfg = tsalr.SALRConfig(sparsity=0.5, method="bitmap", lora_rank=rank, res_rank=rank,
+                            dtype="float32", backend="kernel")
+    jl = jsalr.compress_linear(jax.random.PRNGKey(0), jnp.asarray(w), jcfg)
+    tl = tsalr.compress_linear(torch.Generator().manual_seed(0), torch.from_numpy(w), tcfg)
+    assert (tl.base.tile, tl.base.cap_t, tl.base.cols) == (jl.base.tile, jl.base.cap_t,
+                                                          jl.base.cols)
+    np.testing.assert_array_equal(_words(tl.base.words), np.asarray(jl.base.words))
+    np.testing.assert_array_equal(_bits(tl.base.values), _jbits(jl.base.values))
+    # residual adapters: SVD signs differ across LAPACKs, so compare the
+    # product the adapter contributes
+    assert _rel(tl.res.delta_w().numpy(), jl.res.delta_w()) <= BUDGET
+    assert tl.lora.a.shape == jl.lora.a.shape and not tl.lora.b.any()
+    assert tl.lora.scale == jl.lora.scale == 1.0
+
+
+def test_compress_linear_masks_bf16_rounded_magnitudes():
+    """At bf16 the mask is taken on bf16-rounded magnitudes (ties broken
+    by index), as the reference casts before pruning."""
+    w = _dense(64, 192, 11)
+    jcfg = jsalr.SALRConfig(lora_rank=8, res_rank=8, dtype="bfloat16")
+    tcfg = tsalr.SALRConfig(lora_rank=8, res_rank=8, dtype="bfloat16")
+    jl = jsalr.compress_linear(jax.random.PRNGKey(1), jnp.asarray(w), jcfg)
+    tl = tsalr.compress_linear(torch.Generator().manual_seed(1), torch.from_numpy(w), tcfg)
+    np.testing.assert_array_equal(_words(tl.base.words), np.asarray(jl.base.words))
+    np.testing.assert_array_equal(_bits(tl.base.values), _jbits(jl.base.values))
+    assert tl.res.a.dtype == torch.bfloat16
+    # bf16 factors: the budget is bf16's, not method:*
+    assert _rel(tl.res.delta_w().float().numpy(),
+                np.asarray(jl.res.delta_w(), np.float32)) <= 2e-2
+
+
+def test_compress_linear_rejects_unported_method():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tsalr.compress_linear(torch.Generator(), torch.zeros(32, 32),
+                              tsalr.SALRConfig(method="nm"))

@@ -1,0 +1,100 @@
+"""Package-level properties of the port: its config and error-budget
+copies equal the reference's, it loads neither JAX nor the reference
+package, and its entry points refuse to fall back to the CPU quietly."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core.quant import ERROR_BUDGETS as J_BUDGETS
+from repro_torch import configs as tconfigs
+from repro_torch.core import execplan
+from repro_torch.core.quant import ERROR_BUDGETS as T_BUDGETS
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _fields(obj):
+    """Field-for-field view of a config value, recursing into dataclasses
+    and tuples (compared by fields, not by class identity)."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _fields(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)):
+        return tuple(_fields(v) for v in obj)
+    return obj
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_copies_equal_reference(smoke):
+    for name in tconfigs.PORTED:
+        t, j = tconfigs.get(name, smoke=smoke), jconfigs.get(name, smoke=smoke)
+        assert _fields(t) == _fields(j)
+        assert (t.n_layers, t.resolved_head_dim) == (j.n_layers, j.resolved_head_dim)
+    assert [f.name for f in dataclasses.fields(tconfigs.ArchConfig)] == \
+        [f.name for f in dataclasses.fields(jconfigs.ArchConfig)]
+    assert {k: _fields(v) for k, v in tconfigs.SHAPES.items()} == \
+        {k: _fields(v) for k, v in jconfigs.SHAPES.items()}
+
+
+def test_error_budgets_equal_reference():
+    assert T_BUDGETS == J_BUDGETS
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """Every repro_torch module and chip_smoke import without pulling in
+    jax or repro (checked in a fresh interpreter)."""
+    mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                  for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    code = "\n".join([
+        "import importlib, sys",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
+        f"for m in {mods!r}: importlib.import_module(m.removesuffix('.__init__'))",
+        "import chip_smoke",
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))",
+        "print(len(sys.modules)); assert not bad, bad",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get("smollm_135m", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke"])
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a GPU (as here) chip_smoke exits non-zero and prints no
+    result line."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_unported_routes_raise():
+    cfg = tconfigs.get("smollm_135m", smoke=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        execplan.resolve_plan(cfg.with_(kv_cache="int8"))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        execplan.PhaseRoute("kernel", repr="nf4")
+    plan = execplan.resolve_plan(cfg)
+    assert (plan.linear_backend("prefill"), plan.kv_layout("decode")) == ("kernel", "paged")
+    assert plan.linear_backend("train") == "reference"
+    with execplan.plan_scope(execplan.resolve_plan(cfg, backend="reference")):
+        assert execplan.current_override().linear_backend("decode") == "reference"
+    assert execplan.current_override() is None
