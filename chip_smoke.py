@@ -7,37 +7,56 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
 Phases (any failure exits non-zero before the result line):
 
-1. Card and build: the card's name and power limit, then the three CUDA
-   kernels built from ``src/repro_torch/csrc`` (one nvcc per source, in
-   parallel).
-2. Kernel vs plain version: ``salr_spmm`` and ``bitmap_spmm`` at every
-   (K, N_pad, tile, cap_t) of smollm_135m's projections and
-   ``paged_gqa_attention`` at its decode shape, each at the decode batch
-   and at prefill size, in bf16 and in f32 with TF32 off, held to the
-   plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32 (both
-   sum in f32 and round once, so only the f32 summation order differs;
-   in bf16 that flips the rounding of a few outputs).  The bf16 limit
-   must also reject a planted fault, ``u = x @ A_cat`` left unrounded,
-   whose plain-version reading is taken at every shape.  Paged attention
-   must give a finite output, equal to the clean one, with NaN in the
-   null page and in a freed page.  Each is timed (profiler device time,
-   L2 flushed before every launch) beside the plain version and one
-   library call as a yardstick.
-3. Main path: smollm_135m at full width, compressed on the GPU from
-   seeded dense weights; 8 requests (prompt 128 sharing a 64-token
-   prefix, 32 new tokens) served by the batch engine (greedy_generate)
-   and by the continuous engine on paged KV with prefix sharing (4
-   slots), plus one rank-0 SALR layer through ``apply_salr``.  Every
-   request must return 32 in-vocab tokens, logits must be finite, and
-   engine tokens must equal greedy tokens up to near-ties.  Prefill
-   logits of the kernel route must lie within ``ROUTE_TOL`` of the
-   reference route's, and each planted fault (a projection family's
-   adapter term dropped) beyond it.
-4. Launch counts of the main path: every kernel > 0, ``salr_spmm``
-   exactly 210 per forward (7 projections x 30 layers).
+1. Card and build: the card's name and power limit, then the four CUDA
+   sources of ``src/repro_torch/csrc`` (eight kernels) built with nvcc,
+   one process per source, in parallel.
+2. Kernel vs plain version, in bf16 and in f32 with TF32 off, held to
+   the plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32
+   (both sum in f32 and round once, so only the f32 summation order
+   differs; in bf16 that flips the rounding of a few outputs).
+   ``salr_spmm`` and ``bitmap_spmm`` at every (K, N_pad, tile, cap_t)
+   of smollm_135m's projections at the decode batch and at prefill
+   size; the bf16 limit must reject a planted fault, ``u = x @ A_cat``
+   left unrounded.  ``qsalr_spmm`` on the NF4 twin of the same
+   projections at the main path's decode batches, M = 4 (the engine's
+   slots) and 8 (greedy_generate's batch), and at M = 1024, which the
+   main path never gives it (prefill is native), to hold its grid over
+   many row blocks too; the bf16 limit must reject the NF4 values left
+   unrounded (f32 into the product).  ``paged_gqa_attention``
+   and the four quantized decode-attention kernels (ring and paged, int8
+   and NF4) at 4 and 8 slots with 300 / 532 live positions: with NaN or
+   junk in the null page and a freed page (data and scales), or past
+   each ring row's position, the output must be finite and equal to the
+   clean one.  Each is timed (profiler device time, L2 flushed before
+   every launch) beside the plain version and one library call as a
+   yardstick.
+3. Main path: smollm_135m at full width, compressed once on the GPU from
+   seeded dense weights with the NF4 twin (``dual_repr``); 8 requests
+   (prompt 128 sharing a 64-token prefix, 32 new tokens) served by the
+   batch engine (greedy_generate) and by the continuous engine (4 slots,
+   paged KV), three times: the native plan (prefix sharing on, plus one
+   rank-0 SALR layer through ``apply_salr``), then decode linears from
+   the NF4 twin with decode KV in int8, then in NF4 (prefill native).
+   Every request must return 32 in-vocab tokens and engine tokens must
+   equal greedy tokens up to near-ties; under the quantized plans every
+   first token must equal the native run's and prefix sharing must be
+   off.  Native prefill logits of the kernel route must lie within
+   ``ROUTE_TOL`` of the reference route's, and each planted fault (a
+   projection family's adapter term dropped) beyond it.  Under each
+   quantized plan, the decode logits of greedy's steps (replayed) on the
+   kernel route must lie within ``QROUTE_TOL`` of the reference route's
+   (the dequantized twin, the plain quantized attention), and planted
+   wiring faults beyond it (two layers' twins swapped; under int8 KV
+   also ``down`` served from its native base).
+4. Launch counts, set to 0 before each of the three runs and read after
+   it: the native run 210 ``salr_spmm`` per forward (7 projections x 30
+   layers); a quantized run 210 ``qsalr_spmm`` and 30 quantized
+   attention launches per decode step and ``salr_spmm`` at prefill
+   only; every kernel launched at least once.
 
 The last lines are the card (nvidia-smi), a JSON object describing each
-kernel, and ``{"ok": true, "device": {...}}``.
+kernel (its launches summed over the three main-path runs, its times at
+one decode-size call), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -64,6 +83,19 @@ TOL = {"bfloat16": 5e-4, "float32": 1e-5}
 # 0.23 to 0.71.  A guard against gross divergence only: subtle faults
 # (an unrounded u) are phase 2's to catch
 ROUTE_TOL = 7e-2
+# the same under a mixed-precision plan, per decode KV precision, on the
+# decode logits of 16 replayed greedy steps of 4 requests: kernel route
+# (qsalr_spmm, the quantized ring attention kernel) vs reference route
+# (the dequantized NF4 twin, the plain quantized attention).  Sound
+# readings over seeds 0-2: int8 2.1e-2 to 2.3e-2, NF4 3.9e-2 to 5.1e-2
+# (a rounding difference that moves a K/V entry across an NF4 decision
+# boundary moves it by a whole level).  Planted faults: two layers' twins
+# swapped 0.60 to 0.68 (checked under both); down served from its native
+# base 8.8e-2 to 1.1e-1 (checked under int8, too close to NF4's sound
+# readings there); wk/wv from their native base 3.8e-2 to 8.8e-2
+# (reported only)
+QROUTE_TOL = {"int8": 5e-2, "nf4": 1e-1}
+QROUTE_STEPS = 16
 R_CAT = 128                                      # LoRA 64 + residual 64
 
 
@@ -142,8 +174,9 @@ def device_us(torch, prof, by_name: dict = None, counts: dict = None) -> float:
 def _row_line(row: dict) -> str:
     shape = " ".join(f"{k}={row[k]}" for k in ("layer", "M", "K", "N_pad", "tile", "cap_t",
                                                 "B", "live_positions") if k in row)
-    fault = (f" (unrounded u: {row['unrounded_u_rel_l2']:.2e})"
-             if "unrounded_u_rel_l2" in row else "")
+    fault = "".join(f" (unrounded {what}: {row[key]:.2e})"
+                    for what, key in (("u", "unrounded_u_rel_l2"),
+                                      ("values", "unrounded_values_rel_l2")) if key in row)
     times = " ".join(f"{k} {row[k]:.4f}" for k in ("ms", "plain_ms", "library_ms",
                                                      "bound_ms") if k in row)
     return (f"phase 2: {row['kernel']} {row['dtype']} {shape}: rel-L2 {row['rel_l2']:.2e}"
@@ -153,6 +186,12 @@ def _row_line(row: dict) -> str:
 def rel_l2(torch, y, ref) -> float:
     d = (y.float() - ref.float()).norm().item()
     return d / max(ref.float().norm().item(), 1e-30)
+
+
+def _bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
+    """(least ms, what binds it) for ``nbytes`` moved and ``flops`` done."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def spmm_checks(torch, timer, gen, rows: list) -> dict:
@@ -201,13 +240,11 @@ def spmm_checks(torch, timer, gen, rows: list) -> dict:
                     nbytes = (m * k * es + tbw.words.numel() * 4 + nnz * es
                               + (k * r + r * n) * es + m * n * es)
                     flops = 2 * m * nnz + 2 * m * k * r + 2 * m * r * n
-                    bound = max(nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+                    bound, by = _bound(nbytes, flops, dtype_name)
                     row = {"kernel": name, "dtype": dtype_name, "layer": lname, "M": m,
                            "K": k, "N_pad": tbw.cols, "tile": tbw.tile, "cap_t": tbw.cap_t,
                            "rel_l2": err, "max_abs_err": abs_err, "bytes": nbytes,
-                           "flops": flops, "bound_ms": bound * 1e3,
-                           "bound_by": ("bytes" if nbytes / H100_BYTES_PER_S
-                                        >= flops / PEAK_FLOPS[dtype_name] else "operations")}
+                           "flops": flops, "bound_ms": bound, "bound_by": by}
                     if dtype_name == "bfloat16" and r:
                         # planted fault: the plain version with u unrounded
                         unrounded = (x.float() @ w_dense.float() + (x.float() @ a.float())
@@ -284,13 +321,11 @@ def paged_checks(torch, timer, gen, rows: list) -> dict:
             nbytes = (2 * b * h * d * es + 2 * live_pos * kh * d * es
                       + live_pages * 4 + b * 4)
             flops = 4 * live_pos * h * d
-            bound = max(nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+            bound, by = _bound(nbytes, flops, dtype_name)
             row = {"kernel": "paged_gqa_attention", "dtype": dtype_name, "B": b, "H": h,
                    "KH": kh, "d": d, "page_size": ps, "max_pages": max_pages,
                    "live_positions": live_pos, "rel_l2": err, "max_abs_err": abs_err,
-                   "bytes": nbytes, "flops": flops, "bound_ms": bound * 1e3,
-                   "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flops /
-                   PEAK_FLOPS[dtype_name] else "operations"}
+                   "bytes": nbytes, "flops": flops, "bound_ms": bound, "bound_by": by}
             if dtype_name == "bfloat16":
                 w = max_pages * ps
                 # the yardstick attends over pre-gathered, head-expanded K/V
@@ -316,9 +351,189 @@ def paged_checks(torch, timer, gen, rows: list) -> dict:
     return summary
 
 
-def main_path(torch, dev, seed: int, rows: list):
-    """Serve smollm_135m at full width through both engines on ``dev``.
-    Returns the launch counts of the run and the counts expected."""
+def qsalr_checks(torch, timer, gen, rows: list) -> dict:
+    """qsalr_spmm vs its plain version at the main path's projection
+    shapes on the NF4 twin of each projection's tiled bitmap: at the
+    decode batches it is given (M = 4 in the engine, 8 in greedy_generate)
+    and at M = 1024 (many row blocks).  The bf16 limit must reject a
+    planted fault: the stored values left unrounded (f32 into the
+    product)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import salr
+    from repro_torch.kernels import ops, ref
+
+    shapes = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/up": (576, 1536),
+              "down": (1536, 576)}
+    summary = {"max_abs_err": 0.0}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for lname, (k, n) in shapes.items():
+            w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+            tbw, _ = salr._tiled_encode(w.to(dt), salr.SALRConfig(dtype=dtype_name))
+            q, _ = bm.tile_quantize_nf4(tbw)
+            a = (torch.randn((k, R_CAT), generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+            b = (torch.randn((R_CAT, n), generator=gen, device="cuda") / math.sqrt(R_CAT)).to(dt)
+            b_pad = ops._pad_bcat(b, q.cols)
+            nnz = int(bm.unpack_bits(q.words.reshape(-1, q.tile // 32), q.tile).sum())
+            w_deq = bm.qtile_decode(q, dt)          # the yardstick's weight, decoded ahead
+            for m in (4, 8, 1024):
+                x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
+                y = ops.qsalr_matmul(x, q, a, b_pad)
+                y_ref = ref.qsalr_spmm_ref(x, q, a, b_pad)
+                torch.cuda.synchronize()
+                err = rel_l2(torch, y, y_ref)
+                abs_err = (y.float() - y_ref.float()).abs().max().item()
+                if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
+                    fail(f"qsalr_spmm {dtype_name} {lname} M={m}: rel-L2 {err:.3e} "
+                         f"> {TOL[dtype_name]:.0e}")
+                summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
+                es = y.element_size()
+                # x, the words, nnz/2 code bytes, one f32 scale per cell,
+                # A and B at the logical width n, y at width n
+                nbytes = (m * k * es + q.words.numel() * 4 + nnz / 2 + q.scales.numel() * 4
+                          + (k * R_CAT + R_CAT * n) * es + m * n * es)
+                flops = 2 * m * nnz + 2 * m * k * R_CAT + 2 * m * R_CAT * n
+                bound, by = _bound(nbytes, flops, dtype_name)
+                row = {"kernel": "qsalr_spmm", "dtype": dtype_name, "layer": lname, "M": m,
+                       "K": k, "N_pad": q.cols, "tile": q.tile, "cap_t": q.cap_t,
+                       "rel_l2": err, "max_abs_err": abs_err, "bytes": nbytes,
+                       "flops": flops, "bound_ms": bound, "bound_by": by}
+                if dtype_name == "bfloat16":
+                    u = (x.float() @ a.float()).to(dt)
+                    unrounded = (x.float() @ bm.qtile_decode(q).float()
+                                 + u.float() @ b_pad.float()).to(dt)
+                    fault = rel_l2(torch, unrounded, y_ref)
+                    row["unrounded_values_rel_l2"] = fault
+                    if not fault > TOL[dtype_name]:
+                        fail(f"bf16 limit {TOL[dtype_name]:.0e} does not reject unrounded "
+                             f"NF4 values at {lname} M={m} (rel-L2 {fault:.3e})")
+                    row.update(ms=timer.ms(lambda: ops.qsalr_matmul(x, q, a, b_pad)),
+                               plain_ms=timer.ms(lambda: ref.qsalr_spmm_ref(x, q, a, b_pad)),
+                               library_ms=timer.ms(lambda: x @ w_deq + (x @ a) @ b_pad))
+                    if lname == "gate/up" and m == 4:
+                        summary.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                               "bound_ms", "bound_by")})
+                        summary["shape"] = (f"bf16 M=4 K=576 N_pad=1536 tile=256 "
+                                            f"cap_t={q.cap_t}")
+                rows.append(row)
+                print(_row_line(row))
+    return summary
+
+
+QUANT_ATTENTION = ("ring_quant_gqa_attention", "paged_quant_gqa_attention",
+                   "ring_nf4_gqa_attention", "paged_nf4_gqa_attention")
+
+
+def quant_attention_checks(torch, timer, gen, rows: list) -> dict:
+    """The four quantized decode-attention kernels vs their plain versions
+    at smollm_135m's decode shape (9 query heads, 3 KV heads, head dim 64,
+    page size 8, 160 positions), 4 and 8 slots.  Paged: junk codes and
+    NaN scales in the null page and in a freed page.  Ring: junk codes
+    and NaN scales past each row's position.  The output must be finite
+    and equal to the clean one."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as attn
+
+    h, kh, d, ps, max_pages = 9, 3, 64, 8, 20       # max_ctx 160
+    w = ps * max_pages
+    summary = {name: {"max_abs_err": 0.0} for name in QUANT_ATTENTION}
+    for name in QUANT_ATTENTION:
+        kv = "int8" if "quant" in name else "nf4"
+        paged = name.startswith("paged")
+        quant = attn.q8 if kv == "int8" else attn.qnf4
+        kern, plain = getattr(ops, name), getattr(ref, name + "_ref")
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            for b in (4, 8):
+                pos = torch.tensor([159, 100, 37, 0, 7, 8, 63, 150][:b], dtype=torch.int32,
+                                   device="cuda")
+                lead = (b * max_pages + 2, ps) if paged else (b, w)  # + null + a freed page
+                kq, ks = quant(torch.randn(lead + (kh, d), generator=gen, device="cuda").to(dt))
+                vq, vs = quant(torch.randn(lead + (kh, d), generator=gen, device="cuda").to(dt))
+                q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
+                if paged:
+                    freed = lead[0] - 1
+                    perm = torch.randperm(b * max_pages, generator=gen, device="cuda") + 1
+                    table = perm.reshape(b, max_pages).to(torch.int32)
+                    for i in range(b):   # past the last live page: null or freed
+                        table[i, int(pos[i]) // ps + 1:] = 0 if i % 2 == 0 else freed
+                    args = (q, kq, vq, ks, vs, table, pos)
+                    live = torch.zeros(lead[0], dtype=torch.bool, device="cuda")
+                    for i in range(b):
+                        live[table[i, :int(pos[i]) // ps + 1].long()] = True
+                    dead = ~live
+                else:
+                    args = (q, kq, vq, ks, vs, pos)
+                    dead = torch.arange(w, device="cuda")[None, :] > pos[:, None]
+                clean = kern(*args)
+                y_ref = plain(*args)
+                dirty = [t.clone() for t in args]
+                for t, junk in zip(dirty[1:5], (-99 if kv == "int8" else 0xAB,) * 2
+                                   + (float("nan"),) * 2):
+                    t[dead] = junk
+                y = kern(*dirty)
+                plain_dirty = plain(*dirty)
+                torch.cuda.synchronize()
+                if not torch.isfinite(y).all() or not torch.equal(y, clean):
+                    fail(f"{name} {dtype_name} B={b}: dead data reached the output")
+                if not torch.isfinite(plain_dirty).all():
+                    fail(f"plain {name} let dead data through")
+                err = rel_l2(torch, y, y_ref)
+                abs_err = (y.float() - y_ref.float()).abs().max().item()
+                if not (err <= TOL[dtype_name]):
+                    fail(f"{name} {dtype_name} B={b}: rel-L2 {err:.3e} > {TOL[dtype_name]:.0e}")
+                s = summary[name]
+                s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+                es = q.element_size()
+                live_pos = int((pos.long() + 1).sum())
+                row_bytes = d if kv == "int8" else d // 2
+                # q and the output; each live position's K and V codes and
+                # their two scales; the live page-table entries; pos
+                nbytes = (2 * b * h * d * es + 2 * live_pos * kh * (row_bytes + 4) + b * 4
+                          + (int((pos.long() // ps + 1).sum()) * 4 if paged else 0))
+                flops = 4 * live_pos * h * d
+                bound, by = _bound(nbytes, flops, dtype_name)
+                row = {"kernel": name, "dtype": dtype_name, "B": b, "H": h, "KH": kh, "d": d,
+                       "page_size": ps if paged else None, "ctx": w,
+                       "live_positions": live_pos, "rel_l2": err, "max_abs_err": abs_err,
+                       "bytes": nbytes, "flops": flops, "bound_ms": bound, "bound_by": by}
+                if dtype_name == "bfloat16":
+                    # the yardstick: SDPA over K/V dequantized, gathered and
+                    # head-expanded beforehand
+                    deq = attn.dq8 if kv == "int8" else attn.dqnf4
+                    kd, vd = deq(kq, ks, dt), deq(vq, vs, dt)
+                    if paged:
+                        kd = kd[table.long()].reshape(b, w, kh, d)
+                        vd = vd[table.long()].reshape(b, w, kh, d)
+                    kg = kd.transpose(1, 2).repeat_interleave(h // kh, dim=1).contiguous()
+                    vg = vd.transpose(1, 2).repeat_interleave(h // kh, dim=1).contiguous()
+                    mask = (torch.arange(w, device="cuda")[None] <= pos[:, None])[:, None, None]
+                    qs = q.transpose(1, 2)
+                    sdpa = torch.nn.functional.scaled_dot_product_attention
+                    row.update(ms=timer.ms(lambda: kern(*args)),
+                               plain_ms=timer.ms(lambda: plain(*args)),
+                               library_ms=timer.ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)))
+                    if b == 4:
+                        s.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by")})
+                        s["shape"] = (f"bf16 B=4 H=9 KH=3 d=64 {kv} "
+                                      f"{'page_size=8 ' if paged else ''}"
+                                      f"live positions {live_pos}")
+                rows.append(row)
+                print(_row_line(row))
+    return summary
+
+
+def main_path(torch, dev, seed: int, rows: list) -> list:
+    """Serve smollm_135m at full width through both engines on ``dev``:
+    compressed once with the NF4 twin (``dual_repr``, which leaves the
+    native base as it is), served under the native plan, then under the
+    two mixed-precision plans.  Returns (path, launch counts, launches
+    expected) for each of the three runs, the counts set to 0 before
+    each run and read right after it (and, for the quantized runs, the
+    launches of one decode step)."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.core import execplan, salr
     from repro_torch.kernels import ops
@@ -326,12 +541,15 @@ def main_path(torch, dev, seed: int, rows: list):
     from repro_torch.models import model as M
 
     cfg = configs.get("smollm_135m")
+    cfg = cfg.with_(salr=dataclasses.replace(cfg.salr, dual_repr=True))
     params, init_s = serve.build_params(cfg, seed, dev)
-    nbytes = 0
-    for t in _tensors(params):
-        nbytes += t.numel() * t.element_size()
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    twin = sum(t.numel() * t.element_size() for lp in params["layers"]
+               for part in ("mixer", "mlp") for lin in lp[part].values()
+               if isinstance(lin, salr.SALRLinear) for t in (lin.qbase.codes, lin.qbase.scales))
     print(f"phase 3: compressed {cfg.name} ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}) on {dev} in {init_s:.2f}s; parameter bytes {nbytes}")
+          f"{cfg.d_model}) with the NF4 twin on {dev} in {init_s:.2f}s; parameter bytes "
+          f"{nbytes}, of which NF4 codes and scales {twin}")
     gen = torch.Generator().manual_seed(seed + 1)
     d = cfg.d_model
     rank0 = salr.compress_linear(gen, (torch.randn((d, d), generator=gen)
@@ -358,8 +576,10 @@ def main_path(torch, dev, seed: int, rows: list):
     peak = torch.cuda.max_memory_allocated() if on_gpu else 0
     forwards = gen_len + metrics["n_prefills"] + metrics["n_decode_ticks"]
     # 7 SALR projections per layer per forward (210 at 30 layers)
-    expected = {"salr_spmm": 7 * cfg.n_layers * forwards, "bitmap_spmm": 1,
-                "paged_gqa_attention": cfg.n_layers * metrics["n_decode_ticks"]}
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"salr_spmm": 7 * cfg.n_layers * forwards, "bitmap_spmm": 1,
+                     "paged_gqa_attention": cfg.n_layers * metrics["n_decode_ticks"]})
+    print(f"phase 3: native plan: {serve.route_line(cfg, plan)}")
     print(f"phase 3: batch engine: {greedy.size} tokens in {batch_s:.3f}s "
           f"({greedy.size / batch_s:.1f} tok/s)")
     print(f"phase 3: continuous engine: {metrics['total_tokens']} tokens in "
@@ -368,10 +588,10 @@ def main_path(torch, dev, seed: int, rows: list):
           f"{metrics['prefix_hit_rate']:.4f}, prefills {metrics['n_prefills']}, decode ticks "
           f"{metrics['n_decode_ticks']}, pages/request {metrics['pages_per_request_mean']}")
     print(f"phase 3: peak device memory {peak} bytes")
-    rows.append({"main_path": True, "batch_tokens": int(greedy.size), "batch_s": batch_s,
+    rows.append({"main_path": "native", "batch_tokens": int(greedy.size), "batch_s": batch_s,
                  "engine": {k: v for k, v in metrics.items() if k != "plan"},
-                 "peak_bytes": peak, "param_bytes": nbytes, "compress_s": init_s,
-                 "launches": counts})
+                 "peak_bytes": peak, "param_bytes": nbytes, "nf4_twin_bytes": twin,
+                 "compress_s": init_s, "launches": counts})
 
     # outputs: shape, vocabulary, finiteness, engine vs greedy
     if greedy.shape != (n_req, gen_len) or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all():
@@ -414,7 +634,184 @@ def main_path(torch, dev, seed: int, rows: list):
                     divergences=report)
     if on_gpu:
         rows[-1]["decode_tick"] = tick_profile(torch, eng, prompts)
-    return counts, expected
+    paths = [("native", counts, expected, None)]
+    for kv in ("int8", "nf4"):
+        paths.append(quant_path(torch, dev, cfg, params, prompts, gen_len, n_slots, kv,
+                                greedy, results, rows))
+    return paths
+
+
+def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv: str,
+               native_greedy, native_results, rows: list) -> tuple:
+    """Serve the same requests under a mixed-precision plan: decode
+    linears from the NF4 twin (``qsalr_spmm``), decode KV in ``kv``
+    (int8 or NF4: quantized paged pools for the engine, a quantized dense
+    cache for greedy_generate), prefill native.  Checks: in-vocabulary
+    tokens, no prefix sharing, every request's first token equal to the
+    native run's (prefill is native), engine tokens equal to
+    greedy_generate's under the same plan up to near-ties.  Returns
+    (path, launch counts, launches expected, launches per decode step)."""
+    import dataclasses
+
+    from repro_torch.core import execplan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    qcfg = cfg.with_(decode_kv_cache=kv,
+                     salr=dataclasses.replace(cfg.salr, decode_repr="bitmap_nf4"))
+    plan = execplan.resolve_plan(qcfg)
+    n_req, n_layers = len(prompts), cfg.n_layers
+    label = f"bitmap_nf4 + {kv} KV"
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.inference_mode():
+        greedy, batch_s = serve.run_batch(qcfg, params, prompts, gen_len, n_req, plan)
+        eng, results, metrics = serve.run_continuous(qcfg, params, prompts, gen_len,
+                                                     n_slots, plan=plan)
+        torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps, ticks = gen_len - 1, metrics["n_decode_ticks"]
+    ring, paged = (("ring_quant_gqa_attention", "paged_quant_gqa_attention") if kv == "int8"
+                   else ("ring_nf4_gqa_attention", "paged_nf4_gqa_attention"))
+    # prefill (one batch prefill, one per admission) stays on salr_spmm;
+    # every decode step runs 7 qsalr_spmm and one quantized attention per
+    # layer: ring in greedy_generate, paged in the engine
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"salr_spmm": 7 * n_layers * (1 + metrics["n_prefills"]),
+                     "qsalr_spmm": 7 * n_layers * (steps + ticks),
+                     ring: n_layers * steps, paged: n_layers * ticks})
+    print(f"phase 3: {label}: {serve.route_line(qcfg, plan)}")
+    print(f"phase 3: {label}: batch engine {greedy.size} tokens in {batch_s:.3f}s "
+          f"({greedy.size / batch_s:.1f} tok/s); continuous engine {metrics['total_tokens']} "
+          f"tokens in {metrics['wall_s']:.3f}s ({metrics['tok_s']:.1f} tok/s), ttft mean "
+          f"{metrics['ttft_mean_s']:.4f}s p50 {metrics['ttft_p50_s']:.4f}s, prefix hit rate "
+          f"{metrics['prefix_hit_rate']:.4f}; peak device memory {peak} bytes")
+    if greedy.shape != (n_req, gen_len) or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all():
+        fail(f"{label}: batch engine tokens: shape {greedy.shape} or out of vocabulary")
+    for i in range(n_req):
+        toks = results[i].tokens
+        if len(toks) != gen_len or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{label}: engine request {i}: {len(toks)} tokens or out of vocabulary")
+    if eng.sharable or metrics["prefix_hit_rate"] != 0.0:
+        fail(f"{label}: prefix sharing must be off with quantized decode KV")
+    if metrics["precision"]["decode"] != {"repr": "bitmap_nf4", "kv_dtype": kv}:
+        fail(f"{label}: the engine ran decode at {metrics['precision']['decode']}")
+    first_native = [native_results[i].tokens[0] for i in range(n_req)]
+    if ([results[i].tokens[0] for i in range(n_req)] != first_native
+            or greedy[:, 0].tolist() != native_greedy[:, 0].tolist()):
+        fail(f"{label}: a first token differs from the native run's (prefill is native)")
+    eng_toks = [results[i].tokens for i in range(n_req)]
+    nat_toks = [native_results[i].tokens for i in range(n_req)]
+    agree_eng = sum(a == b for r, n in zip(eng_toks, nat_toks) for a, b in zip(r, n))
+    agree_batch = int((greedy == native_greedy).sum())
+    total = n_req * gen_len
+    print(f"phase 3: {label}: tokens agreeing with the native run: engine "
+          f"{agree_eng}/{total} ({agree_eng / total:.4f}), batch {agree_batch}/{total} "
+          f"({agree_batch / total:.4f}); first tokens all equal")
+    with torch.inference_mode():
+        report = serve.parity_report(qcfg, params, prompts, greedy, results, plan)
+    for rid, step, gap, limit, tie in report:
+        print(f"phase 3: {label}: request {rid} diverges from greedy_generate at step "
+              f"{step}: top-2 gap {gap:.5g}, near-tie limit {limit:.5g} -> "
+              f"{'near-tie, accepted' if tie else 'NOT a near-tie'}")
+    if not all(r[4] for r in report):
+        fail(f"{label}: engine tokens diverge from greedy_generate away from a near-tie")
+    print(f"phase 3: {label}: parity: {n_req - len(report)}/{n_req} requests equal "
+          f"greedy_generate exactly, {len(report)} diverge at near-ties")
+    route_err, faults = quant_route_check(torch, qcfg, params, prompts, greedy, plan, label)
+    rows.append({"main_path": label, "batch_tokens": int(greedy.size), "batch_s": batch_s,
+                 "engine": {k: v for k, v in metrics.items() if k != "plan"},
+                 "peak_bytes": peak, "launches": counts, "divergences": report,
+                 "decode_kernel_vs_reference_rel_l2": route_err,
+                 "decode_planted_faults_rel_l2": faults,
+                 "agree_with_native": {"engine": agree_eng / total,
+                                       "batch": agree_batch / total},
+                 "decode_tick": tick_profile(torch, eng, prompts)})
+    # the quantized decode tick as counted: per engine tick, per
+    # greedy_generate step, and the salr_spmm launches left after prefill
+    per_step = {"qsalr_spmm": counts["qsalr_spmm"] / (steps + ticks),
+                paged + " per engine tick": counts[paged] / ticks,
+                ring + " per greedy_generate step": counts[ring] / steps,
+                "salr_spmm at decode": counts["salr_spmm"]
+                - 7 * n_layers * (1 + metrics["n_prefills"])}
+    return label, counts, expected, per_step
+
+
+def quant_route_check(torch, cfg, params, prompts, greedy, plan, label: str) -> tuple:
+    """Decode logits of a mixed-precision plan, kernel route vs reference
+    route: greedy's first ``QROUTE_STEPS`` decode steps of 4 requests
+    replayed on each route (``replay_logits``), rel-L2 within the
+    ``QROUTE_TOL`` of the plan's decode KV precision.  The kernel route
+    runs qsalr_spmm and the quantized ring attention kernel, the reference
+    route the dequantized NF4 twin and the plain quantized attention, each
+    on its own KV cache.  Planted wiring faults on the kernel route must
+    read beyond the limit where marked.  Returns (rel-L2, {fault:
+    rel-L2})."""
+    from repro_torch.core import execplan
+    from repro_torch.models import model as M
+    from repro_torch.train.step import replay_logits
+
+    dev = M.params_device(params)
+    kv = plan.kv_dtype("decode")
+    tol = QROUTE_TOL[kv]
+    pt = torch.from_numpy(prompts[:4]).to(dev)
+    toks = torch.from_numpy(greedy[:4, :QROUTE_STEPS + 1]).to(dev)
+    ref_plan = execplan.resolve_plan(cfg, backend="reference")
+    n = len(params["layers"])
+
+    def decode_logits(p, pl):                     # step 0 is the native prefill's
+        return replay_logits(p, cfg, pt, toks, plan=pl)[:, 1:]
+    with torch.inference_mode():
+        lr = decode_logits(params, ref_plan)
+        lk = decode_logits(params, plan)
+        faults = {   # (params with the fault, whether the limit must reject it)
+            "down from the native base": (edit_linears(
+                params, ("down",), range(n), lambda lin, _: {"qbase": None}), kv == "int8"),
+            "layers 0 and 1 twins swapped": (edit_linears(
+                params, PROJECTIONS, (0, 1), lambda lin, other: {"qbase": other.qbase}), True),
+            "wk/wv from the native base": (edit_linears(
+                params, ("wk", "wv"), range(n), lambda lin, _: {"qbase": None}), False),
+        }
+        faults = {k: (rel_l2(torch, decode_logits(fp, plan), lr), checked)
+                  for k, (fp, checked) in faults.items()}
+    if not torch.isfinite(lk).all() or not torch.isfinite(lr).all():
+        fail(f"{label}: decode logits not finite")
+    err = rel_l2(torch, lk, lr)
+    print(f"phase 3: {label}: decode logits ({QROUTE_STEPS} steps), kernel route vs "
+          f"reference route: rel-L2 {err:.4e} (limit {tol:.0e}); planted faults: "
+          + ", ".join(f"{k} {v:.4e}{'' if c else ' (reported only)'}"
+                      for k, (v, c) in faults.items()))
+    if not err <= tol:
+        fail(f"{label}: kernel route strays from the reference formulation at decode: "
+             f"rel-L2 {err:.3e}")
+    if not all(v > tol for v, c in faults.values() if c):
+        fail(f"{label}: decode route limit {tol:.0e} does not reject every checked "
+             "planted fault")
+    return err, {k: v for k, (v, _) in faults.items()}
+
+
+PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def edit_linears(params, names: tuple, layers, edit):
+    """A copy of ``params`` in which each projection ``names`` of each
+    layer in ``layers`` gets the fields ``edit(lin, other)`` returns
+    (a dict): ``lin`` is the projection, ``other`` the same projection of
+    the layer ``layers`` lists next (cyclically)."""
+    import dataclasses
+
+    layers = list(layers)
+    src = params["layers"]
+    out = [{k: dict(v) if isinstance(v, dict) else v for k, v in lp.items()} for lp in src]
+    for i, l in enumerate(layers):
+        o = layers[(i + 1) % len(layers)]
+        for part in ("mixer", "mlp"):
+            for name in set(names) & set(src[l][part]):
+                lin = src[l][part][name]
+                out[l][part][name] = dataclasses.replace(lin, **edit(lin, src[o][part][name]))
+    return {**params, "layers": out}
 
 
 def drop_adapters(torch, params, names: tuple):
@@ -424,16 +821,8 @@ def drop_adapters(torch, params, names: tuple):
 
     def drop(ad):
         return None if ad is None else dataclasses.replace(ad, b=torch.zeros_like(ad.b))
-    layers = []
-    for lp in params["layers"]:
-        lp = {k: dict(v) if isinstance(v, dict) else v for k, v in lp.items()}
-        for part in ("mixer", "mlp"):
-            for name in set(names) & set(lp[part]):
-                lin = lp[part][name]
-                lp[part][name] = dataclasses.replace(lin, lora=drop(lin.lora),
-                                                     res=drop(lin.res))
-        layers.append(lp)
-    return {**params, "layers": layers}
+    return edit_linears(params, names, range(len(params["layers"])),
+                        lambda lin, _: {"lora": drop(lin.lora), "res": drop(lin.res)})
 
 
 def tick_profile(torch, eng, prompts) -> dict:
@@ -474,8 +863,12 @@ def tick_profile(torch, eng, prompts) -> dict:
                 best = (sum(counts.values()), by_name)
     by_name = best[1]
     busy_ms = sum(by_name.values()) / n / 1e3
-    families = {"salr_spmm": ("salr_spmm_kernel", "adapter_u_kernel"),
-                "paged_gqa_attention": ("paged_gqa_kernel",)}
+    # salr_spmm.cu's two ops share kernel names; the NF4 loader in the
+    # template arguments marks qsalr_spmm's, so it is matched first
+    families = {"qsalr_spmm": ("NF4Values",),
+                "salr_spmm": ("salr_spmm_kernel", "adapter_u_kernel"),
+                "paged_gqa_attention": ("paged_gqa_kernel",),
+                "quantized attention": ("quant_gqa_kernel",)}
     split = {f: 0.0 for f in (*families, "other")}
     for name, us in by_name.items():
         fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
@@ -541,22 +934,40 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         spmm = spmm_checks(torch, timer, gen, rows)
         paged = paged_checks(torch, timer, gen, rows)
+        qsalr = qsalr_checks(torch, timer, gen, rows)
+        quant_att = quant_attention_checks(torch, timer, gen, rows)
     print("phase 2: every kernel agrees with its plain version")
 
-    counts, expected = main_path(torch, torch.device("cuda"), args.seed, rows)
-    for name, n in counts.items():
-        if n == 0 or n != expected[name]:
-            fail(f"main path launched {name} {n} times, expected {expected[name]}")
-    print(f"phase 4: main-path launches {counts}")
+    paths = main_path(torch, torch.device("cuda"), args.seed, rows)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    for path, counts, expected, per_step in paths:
+        for name, n in counts.items():
+            if n != expected[name]:
+                fail(f"{path} path launched {name} {n} times, expected {expected[name]}")
+            launches[name] += n
+        print(f"phase 4: {path} path launches {({k: v for k, v in counts.items() if v})}")
+        if per_step:
+            print(f"phase 4: {path}: per decode step {per_step}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} was launched no time on the main path")
 
     sources = {"salr_spmm": ("src/repro_torch/csrc/salr_spmm.cu",
                              "src/repro/kernels/salr_spmm.py:74", spmm["salr_spmm"]),
                "bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
                                "src/repro/kernels/bitmap_spmm.py:68", spmm["bitmap_spmm"]),
                "paged_gqa_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                                       "src/repro/kernels/paged_attention.py:98", paged)}
+                                       "src/repro/kernels/paged_attention.py:98", paged),
+               "qsalr_spmm": ("src/repro_torch/csrc/salr_spmm.cu",
+                              "src/repro/kernels/qsalr_spmm.py:89", qsalr),
+               **{name: ("src/repro_torch/csrc/quant_attention.cu",
+                         f"src/repro/kernels/{rep}", quant_att[name])
+                  for name, rep in (("ring_quant_gqa_attention", "ring_attention.py:77"),
+                                    ("paged_quant_gqa_attention", "paged_attention.py:175"),
+                                    ("ring_nf4_gqa_attention", "ring_attention.py:142"),
+                                    ("paged_nf4_gqa_attention", "paged_attention.py:259"))}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                 "shape": s["shape"]}

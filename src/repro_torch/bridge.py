@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.adapters import LoRAAdapter
-from repro_torch.core.bitmap import TiledBitmapWeight
+from repro_torch.core.bitmap import QTiledBitmapWeight, TiledBitmapWeight
 from repro_torch.core.salr import SALRLinear
 from repro_torch.device import resolve_device
 
@@ -45,10 +45,15 @@ def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device) -
     res = (LoRAAdapter(a=leaf(".res.a"), b=leaf(".res.b"), scale=1.0)
            if key + ".res.a" in flat else None)
     bias = leaf(".bias") if key + ".bias" in flat else None
+    qbase = None
+    if key + ".qbase.codes" in flat:        # the NF4 twin of a dual_repr layer
+        qbase = QTiledBitmapWeight(words=leaf(".qbase.words"), codes=leaf(".qbase.codes"),
+                                   scales=leaf(".qbase.scales"), cols=base.cols,
+                                   tile=base.tile, cap_t=base.cap_t)
     if lora.b.shape[1] != d_out:
         raise ValueError(f"{key}: adapter width {lora.b.shape[1]} != d_out {d_out}")
     return SALRLinear(base=base, lora=lora, res=res, bias=bias, d_in=words.shape[0],
-                      d_out=d_out, backend=cfg.salr.backend)
+                      d_out=d_out, backend=cfg.salr.backend, qbase=qbase)
 
 
 def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
@@ -56,7 +61,9 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     repeats axis of every stacked leaf is unstacked into per-layer
     entries; tiled-bitmap static fields derive from the shapes (tile =
     words-per-tile x 32, cap_t from the values, cols = n_tiles x tile),
-    d_out from the config, and adapter scales are 1.0 (alpha = rank)."""
+    d_out from the config, and adapter scales are 1.0 (alpha = rank).  A
+    layer's NF4 twin (``.qbase.words/codes/scales``) is carried when the
+    reference emitted one."""
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
     widths = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,

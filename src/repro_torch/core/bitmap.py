@@ -21,6 +21,8 @@ import math
 
 import torch
 
+from repro_torch.core.quant import nf4_index, nf4_levels
+
 _MASK32 = (1 << 32) - 1
 
 
@@ -150,3 +152,55 @@ def tile_decode(tbw: TiledBitmapWeight) -> torch.Tensor:
                       values=tbw.values.reshape(rows * n_tiles, tbw.cap_t),
                       cols=tbw.tile, cap=tbw.cap_t)
     return decode(bw).reshape(rows, tbw.cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class QTiledBitmapWeight:
+    """Tiled bitmap whose compact values are NF4-quantized per cell: the
+    storage the fused dequant-decode kernel (``ops.qsalr_matmul``) reads."""
+    words: torch.Tensor     # int32 (rows, n_tiles, tile//32)
+    codes: torch.Tensor     # uint8 (rows, n_tiles, cap_t//2)
+    scales: torch.Tensor    # f32   (rows, n_tiles, 1)
+    cols: int
+    tile: int
+    cap_t: int
+
+    @property
+    def rows(self) -> int:
+        return self.words.shape[0]
+
+    @property
+    def n_tiles(self) -> int:
+        return self.words.shape[1]
+
+
+def tile_quantize_nf4(tbw: TiledBitmapWeight):
+    """Per-cell NF4 quantization of a tiled bitmap's compact values.
+    Returns (QTiledBitmapWeight sharing ``tbw.words``, dense (rows, cols)
+    quantization error).  ``cap_t`` must be even."""
+    if tbw.cap_t % 2:
+        raise ValueError(f"cap_t={tbw.cap_t} must be even to pack NF4 nibbles")
+    vals = tbw.values.float()                                # (rows, T, cap_t)
+    scales = vals.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12)
+    idx = nf4_index(vals / scales)
+    codes = idx[..., 0::2] | (idx[..., 1::2] << 4)
+    q = QTiledBitmapWeight(words=tbw.words, codes=codes, scales=scales,
+                           cols=tbw.cols, tile=tbw.tile, cap_t=tbw.cap_t)
+    deq = nf4_levels(vals.device)[idx.long()] * scales
+    qerr = tile_decode(dataclasses.replace(tbw, values=(vals - deq).to(tbw.values.dtype)))
+    return q, qerr
+
+
+def tile_dequantize_nf4(q: QTiledBitmapWeight, dtype=torch.float32) -> TiledBitmapWeight:
+    """Value-carrying tiled bitmap of ``q``: level x cell scale in f32,
+    then one rounding to ``dtype``.  Byte i of a cell's codes holds slot
+    2i (low nibble) and slot 2i+1 (high nibble)."""
+    idx = torch.stack([q.codes & 0x0F, q.codes >> 4], dim=-1).reshape(q.codes.shape[:-1] + (-1,))
+    vals = nf4_levels(q.codes.device)[idx.long()] * q.scales
+    return TiledBitmapWeight(words=q.words, values=vals.to(dtype), cols=q.cols,
+                             tile=q.tile, cap_t=q.cap_t)
+
+
+def qtile_decode(q: QTiledBitmapWeight, dtype=torch.float32) -> torch.Tensor:
+    """Dense (rows, cols) decode of the quantized tiled format."""
+    return tile_decode(tile_dequantize_nf4(q, dtype=dtype))

@@ -3,17 +3,19 @@ forward takes.
 
 ``resolve_plan`` maps a model config to a :class:`PhaseRoute` per phase
 (prefill, decode, train); the model entry points read their phase's route
-and thread it down to every linear and attention call.  Routes live in
-this slice:
+and thread it down to every linear and attention call.  Routes:
 
-  linear  ``kernel`` (CUDA SpMM kernels) | ``reference`` (dense decode +
-          GEMM, the differentiable oracle)
-  kv      ``dense`` (slot-indexed cache) | ``paged`` (global page pool +
-          per-slot page table, read by the paged-attention kernel)
+  linear    ``kernel`` (CUDA SpMM and decode-attention kernels) |
+            ``reference`` (dense decode + GEMM and the attention kernels'
+            plain versions, the differentiable oracle)
+  kv        ``dense`` (slot-indexed cache) | ``paged`` (global page pool
+            + per-slot page table, read by the paged-attention kernels)
+  repr      ``native`` (the layer's base) | ``nf4`` / ``bitmap_nf4``
+            (the layer's NF4 twin ``SALRLinear.qbase``)
+  kv_dtype  ``native`` | ``int8`` | ``nf4``: the precision of the
+            phase's KV cache, dequantized inside the decode kernels
 
-``repr`` and ``kv_dtype`` (quantized bases and KV) accept only
-``native`` until their slice is ported; MoE routes come with the MoE
-slice.
+MoE routes come with the MoE slice.
 
 Precedence: explicit per-call argument > threaded plan route > active
 ``plan_scope`` > ``resolve_plan(cfg)`` default.
@@ -26,19 +28,16 @@ from typing import Optional
 
 LINEAR_ROUTES = ("kernel", "reference")
 KV_ROUTES = ("dense", "paged")
+REPR_ROUTES = ("native", "nf4", "bitmap_nf4")
+KV_DTYPES = ("native", "int8", "nf4")
 PHASES = ("prefill", "decode", "train")
-
-
-def _native_only(field: str, value: str) -> None:
-    if value != "native":
-        raise NotImplementedError(
-            f"{field}={value!r} is not yet ported (only 'native')")
 
 
 @dataclasses.dataclass(frozen=True)
 class PhaseRoute:
     """Concrete routes for one phase: every SALR linear follows ``linear``
-    and the phase's KV cache layout follows ``kv``."""
+    and reads the base ``repr``; the phase's KV cache has layout ``kv``
+    and precision ``kv_dtype``."""
     linear: str                    # kernel | reference
     kv: str = "dense"              # dense | paged
     repr: str = "native"
@@ -49,8 +48,10 @@ class PhaseRoute:
             raise ValueError(f"unknown linear route {self.linear!r}")
         if self.kv not in KV_ROUTES:
             raise ValueError(f"unknown KV route {self.kv!r}")
-        _native_only("repr", self.repr)
-        _native_only("kv_dtype", self.kv_dtype)
+        if self.repr not in REPR_ROUTES:
+            raise ValueError(f"unknown base repr {self.repr!r}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown KV dtype {self.kv_dtype!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +72,12 @@ class ExecutionPlan:
     def kv_layout(self, phase: str) -> str:
         return self.route(phase).kv
 
+    def base_repr(self, phase: str) -> str:
+        return self.route(phase).repr
+
+    def kv_dtype(self, phase: str) -> str:
+        return self.route(phase).kv_dtype
+
     def describe(self) -> dict:
         """JSON-stable summary (serve logging, engine metrics)."""
         return {ph: dataclasses.asdict(self.route(ph)) for ph in PHASES}
@@ -86,12 +93,18 @@ def resolve_plan(cfg, *, backend: Optional[str] = None,
     under both backends (the layout is storage, not arithmetic); prefill
     and train stay ``dense``.  ``overrides`` ({phase: {field: value}})
     apply last, e.g. ``{"decode": {"kv": "dense"}}`` for a run without
-    paging.  Quantized ``cfg.kv_cache`` / ``decode_kv_cache`` /
-    ``salr.decode_repr`` settings raise: their slice is not ported."""
+    paging.
+
+    Precision: ``cfg.kv_cache`` sets the KV dtype of both cache-writing
+    phases (prefill builds the cache decode reads);
+    ``cfg.decode_kv_cache`` quantizes only decode (prefill stays native
+    and the cache is quantized on its way into the decode cache);
+    ``cfg.salr.decode_repr`` serves decode linears from the NF4 twin
+    while prefill reads the native base.  Train never quantizes."""
     b = backend if backend is not None else cfg.salr.backend
     if b not in LINEAR_ROUTES:
         raise ValueError(f"unknown SALR backend {b!r}")
-    kv_dt = cfg.kv_cache
+    kv_dt = cfg.kv_cache if cfg.kv_cache in KV_DTYPES else "native"
     dec_kv = cfg.decode_kv_cache or kv_dt
     dec_repr = cfg.salr.decode_repr or "native"
     routes = {

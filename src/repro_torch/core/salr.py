@@ -3,14 +3,18 @@
 W_hat is the statically pruned frozen base, stored in the kernel-native
 tiled bitmap (``core.bitmap.TiledBitmapWeight``, always in the logical
 (d_in, d_out) orientation); A_cat/B_cat fuse the task LoRA adapter with
-the sparsity-preservation residual adapter into one GEMM pair.
+the sparsity-preservation residual adapter into one GEMM pair.  With
+``dual_repr`` a layer also carries ``qbase``, an NF4-requantized twin of
+the base (``QTiledBitmapWeight``, the same words) that a mixed-precision
+plan streams at decode; the adapters are shared.
 
 ``apply_salr`` dispatches on the execution route: ``kernel`` runs the
-fused SpMM (``kernels.ops.salr_matmul``, or ``bitmap_matmul`` for a layer
-whose adapter rank is 0), ``reference`` decodes W_hat dense and runs
-plain GEMMs.  Only the bitmap method is ported so far; the kernel
-wrappers are forward-only (the autograd Function, whose backward replays
-the reference formulation, comes with the fine-tuning slice).
+fused SpMM (``kernels.ops.salr_matmul``, ``bitmap_matmul`` for a layer
+whose adapter rank is 0, ``qsalr_matmul`` for the NF4 twin),
+``reference`` decodes the base dense and runs plain GEMMs.  Only the
+bitmap method is ported so far; the kernel wrappers are forward-only
+(the autograd Function, whose backward replays the reference
+formulation, comes with the fine-tuning slice).
 """
 from __future__ import annotations
 
@@ -34,12 +38,16 @@ class SALRConfig:
     res_rank: int = 64
     dtype: str = "float32"
     backend: str = "kernel"       # the layers' default route
+    # also emit ``SALRLinear.qbase``, the NF4 twin a quantized decode
+    # route (PhaseRoute.repr) reads
+    dual_repr: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class SALRLinear:
     """Frozen tiled-bitmap base + fused adapters.  ``backend`` records the
-    layer's default execution route."""
+    layer's default execution route; ``qbase`` is the optional NF4 twin of
+    ``base`` (same sparse structure, requantized payload)."""
     base: bm.TiledBitmapWeight
     lora: LoRAAdapter
     res: Optional[LoRAAdapter]
@@ -47,10 +55,14 @@ class SALRLinear:
     d_in: int
     d_out: int
     backend: str = "reference"
+    qbase: Optional[bm.QTiledBitmapWeight] = None
 
 
-def materialize_base(base: bm.TiledBitmapWeight) -> torch.Tensor:
-    """Dense W_hat (d_in, cols) with the tile zero-padding still on."""
+def materialize_base(base) -> torch.Tensor:
+    """Dense W_hat (d_in, cols) with the tile zero-padding still on (f32
+    for the NF4 twin, whose levels x scales are computed in f32)."""
+    if isinstance(base, bm.QTiledBitmapWeight):
+        return bm.qtile_decode(base)
     return bm.tile_decode(base)
 
 
@@ -86,9 +98,23 @@ def _resolve_backend(layer: SALRLinear, backend: Optional[str]) -> str:
     return b
 
 
-def _apply_reference(x: torch.Tensor, layer: SALRLinear) -> torch.Tensor:
-    """Dense decode + GEMM (the differentiable oracle path)."""
-    w = materialize_base(layer.base)[:, :layer.d_out].to(x.dtype)
+def _resolve_repr(base_repr: Optional[str]) -> str:
+    if base_repr is None:
+        from repro_torch.core import execplan
+        override = execplan.current_override()
+        if override is not None:
+            # same phase convention as _resolve_backend
+            base_repr = override.base_repr("prefill")
+    return base_repr or "native"
+
+
+def _apply_reference(x: torch.Tensor, layer: SALRLinear, base=None) -> torch.Tensor:
+    """Dense decode + GEMM (the differentiable oracle path).  ``base``
+    substitutes another representation of the frozen base (the
+    quantized-repr oracle passes ``layer.qbase``)."""
+    if base is None:
+        base = layer.base
+    w = materialize_base(base)[:, :layer.d_out].to(x.dtype)
     a_cat, b_cat = adapter_cat(layer)
     y = x @ w + (x @ a_cat) @ b_cat
     if layer.bias is not None:
@@ -109,14 +135,34 @@ def _kernel_dispatch(x: torch.Tensor, layer: SALRLinear) -> torch.Tensor:
     return y
 
 
-def apply_salr(x: torch.Tensor, layer: SALRLinear,
-               backend: Optional[str] = None) -> torch.Tensor:
+def _qkernel_dispatch(x: torch.Tensor, layer: SALRLinear) -> torch.Tensor:
+    """The fused NF4 op over the twin ``layer.qbase``; the adapters and
+    bias are the native path's."""
+    from repro_torch.kernels import ops
+    a_cat, b_cat = adapter_cat(layer)
+    y = ops.qsalr_matmul(x, layer.qbase, a_cat, b_cat)[..., :layer.d_out]
+    if layer.bias is not None:
+        y = y + layer.bias
+    return y
+
+
+def apply_salr(x: torch.Tensor, layer: SALRLinear, backend: Optional[str] = None,
+               base_repr: Optional[str] = None) -> torch.Tensor:
     """y = x @ W_hat + (x @ A_cat) @ B_cat (+ bias).  x: (..., d_in).
 
     ``backend`` (explicit argument, usually the threaded plan route's
     ``linear``; then any active plan scope; then ``layer.backend``)
-    selects the fused kernel or the dense reference path."""
-    if _resolve_backend(layer, backend) == "kernel":
+    selects the fused kernel or the dense reference path.  ``base_repr``
+    (the route's ``repr``, then any plan scope, then ``native``): a
+    quantized repr reads the NF4 twin ``layer.qbase`` -- through
+    ``qsalr_matmul`` on the kernel route, dequantized on the reference
+    route; a layer without a twin reads its native base."""
+    b = _resolve_backend(layer, backend)
+    if _resolve_repr(base_repr) != "native" and layer.qbase is not None:
+        if b == "kernel":
+            return _qkernel_dispatch(x, layer)
+        return _apply_reference(x, layer, base=layer.qbase)
+    if b == "kernel":
         return _kernel_dispatch(x, layer)
     return _apply_reference(x, layer)
 
@@ -140,9 +186,25 @@ def compress_linear(gen: torch.Generator, w: torch.Tensor, cfg: SALRConfig,
               if cfg.res_rank > 0 else None)
     lora = init_lora(gen, d_in, d_out, cfg.lora_rank, dtype=dtype,
                      device=w.device)
-    return SALRLinear(base=base, lora=lora, res=res_ad,
-                      bias=None if bias is None else bias.to(dtype),
-                      d_in=d_in, d_out=d_out, backend=cfg.backend)
+    layer = SALRLinear(base=base, lora=lora, res=res_ad,
+                       bias=None if bias is None else bias.to(dtype),
+                       d_in=d_in, d_out=d_out, backend=cfg.backend)
+    if cfg.dual_repr:
+        layer = dataclasses.replace(layer, qbase=attach_qbase(layer))
+    return layer
+
+
+def attach_qbase(layer: SALRLinear) -> bm.QTiledBitmapWeight:
+    """NF4 twin of a tiled-bitmap base for mixed-precision routes: the
+    words are shared, each cell's values requantized.  The quantization
+    error is not folded into the residual adapter (the adapters are
+    shared with the native base), so the route's error is exactly the
+    NF4 roundtrip."""
+    if isinstance(layer.base, bm.TiledBitmapWeight):
+        return bm.tile_quantize_nf4(layer.base)[0]
+    raise NotImplementedError(
+        f"the NF4 twin of a {type(layer.base).__name__} base (QDenseWeight, "
+        "ops.nf4_matmul) is not yet ported")
 
 
 def _tiled_encode(w: torch.Tensor, cfg: SALRConfig):

@@ -29,7 +29,8 @@ bitmap_spmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ words,
   __shared__ __align__(16) salr::Smem s;
   float acc[salr::ROWS_PER_THREAD] = {0.f};
   int m0 = blockIdx.y * salr::BM;
-  salr::bitmap_gemm(s, acc, x, words, values, M, K, n_tiles, wpt, cap_t, m0);
+  const salr::PlainValues<T> vals{values, cap_t};
+  salr::bitmap_gemm(s, acc, x, words, vals, M, K, n_tiles, wpt, cap_t, m0);
   salr::store_tile(y, acc, M, n_tiles * wpt * 32, m0, blockIdx.x * salr::BN);
 }
 

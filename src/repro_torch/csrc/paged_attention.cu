@@ -17,25 +17,16 @@
 // Pass 2: softmax over the live positions per query head.  Pass 3: the
 // threads split (position stripe, head dim) and accumulate the f32 PV
 // sum, reduced across stripes in a fixed order and cast to the q type.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
+
+using salr::from_f32;
+using salr::to_f32;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_G = 8;      // query heads per KV head
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // q (B, H, D); pools (P, page_size, KH, D); page_table (B, max_pages);
 // pos (B,) last live position; out (B, H, D).  Shared memory: q_s[G*D],

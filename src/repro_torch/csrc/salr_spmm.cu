@@ -1,13 +1,19 @@
-// salr_spmm: the full SALR deployment op,
+// salr_spmm and qsalr_spmm: the full SALR deployment op,
 //     y = x @ W_hat + bf16(x @ A_cat) @ B_cat,
-// with W_hat in the tiled bitmap format decoded inside the GEMM.
+// with W_hat in the tiled bitmap format decoded inside the GEMM; for
+// qsalr_spmm the stored values are NF4 codes dequantized in the decode.
 //
 // Replaces: src/repro/kernels/salr_spmm.py:salr_spmm_pallas (ops.salr_matmul,
-// every attention and SwiGLU projection of the main path).
+// every attention and SwiGLU projection of the main path) and
+// src/repro/kernels/qsalr_spmm.py:qsalr_spmm_pallas (ops.qsalr_matmul,
+// every decode projection of a mixed-precision plan whose decode repr is
+// the NF4 twin, core/salr.py:_qkernel_dispatch).
 //
 // Bound on the H100: bytes at decode (M = 4..8: the compressed weight,
 // ~0.35 MB for a 576 x 768 layer, plus A_cat/B_cat, about 2 flops per
 // byte), tensor-core flops at prefill (M = 1024: ~600 flops per byte).
+// The NF4 weight costs 4 bits per stored value plus the words and one f32
+// scale per (row, tile) cell, about 0.6x the bytes of bf16 values.
 //
 // Design: two launches.  The TPU kernel builds u = x @ A_cat on its first
 // N pass and reuses it for every later N tile, which needs the grid to
@@ -16,70 +22,67 @@
 // the operand type exactly as the TPU kernel's u.astype(b.dtype).  The
 // second launch is the bitmap decode + GEMM of bitmap_spmm.cu with the
 // adapter term u @ B_cat[:, block] reduced in f32 in its epilogue and
-// added to the base sum before the one rounding of the output.  Neither
-// launch uses a library GEMM.  Making it fast (wgmma, TMA, a pipelined
-// decode) is later work.
+// added to the base sum before the one rounding of the output.  The two
+// ops differ only in the value loader the decode is instantiated with
+// (tiled_bitmap.cuh): PlainValues reads a stored value; NF4Values reads
+// NF4_LEVELS[nibble] x the cell's scale in f32 (low nibble for an even
+// slot, high for an odd one), rounded to the operand type and widened, as
+// the reference rounds the decoded tile to x's dtype before its product,
+// with the 16 levels in shared memory.  Both kernels carry the loader in
+// their template arguments, so a profile tells the native and NF4 ops
+// apart by name.  Each output row is reduced over k in one fixed order by
+// one thread, so a row's result does not depend on M (the engine decodes
+// at M = n_slots, greedy_generate at M = batch).  Neither launch uses a
+// library GEMM.  Making it fast (wgmma, TMA, a pipelined decode) is later
+// work.
 #include "tiled_bitmap.cuh"
 
 namespace {
 
-// u[m0:m0+BM, r0:r0+BN] = x @ A_cat, one rounding to T at the end.
-template <typename T>
+// V only names the op in profiles: the u launch is the same for both.
+template <typename T, typename V>
 __global__ void __launch_bounds__(salr::THREADS)
 adapter_u_kernel(const T* __restrict__ x, const T* __restrict__ a, T* __restrict__ u,
                  int M, int K, int R) {
   __shared__ __align__(16) salr::Smem s;
-  float acc[salr::ROWS_PER_THREAD] = {0.f};
-  int m0 = blockIdx.y * salr::BM, r0 = blockIdx.x * salr::BN;
-  for (int k0 = 0; k0 < K; k0 += salr::BK) {
-    salr::load_rows(s.a, x, m0, M, k0, K, K);
-    salr::load_dense(s.b, a, k0, K, r0, R, R);
-    __syncthreads();
-    salr::mma_stage(s, acc);
-    __syncthreads();
-  }
-  salr::store_tile(u, acc, M, R, m0, r0);
+  salr::adapter_u(s, x, a, u, M, K, R);
 }
 
-template <typename T>
+template <typename T, typename V>
 __global__ void __launch_bounds__(salr::THREADS)
-salr_spmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ words,
-                 const T* __restrict__ values, const T* __restrict__ u,
-                 const T* __restrict__ b, T* __restrict__ y, int M, int K, int R,
-                 int n_tiles, int wpt, int cap_t) {
+salr_spmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ words, V vals,
+                 const T* __restrict__ u, const T* __restrict__ b, T* __restrict__ y, int M,
+                 int K, int R, int n_tiles, int wpt, int cap_t) {
   __shared__ __align__(16) salr::Smem s;
-  const int N = n_tiles * wpt * 32;
-  const int m0 = blockIdx.y * salr::BM, n0 = blockIdx.x * salr::BN;
-  float acc[salr::ROWS_PER_THREAD] = {0.f};
-  salr::bitmap_gemm(s, acc, x, words, values, M, K, n_tiles, wpt, cap_t, m0);
-  float delta[salr::ROWS_PER_THREAD] = {0.f};
-  for (int r0 = 0; r0 < R; r0 += salr::BK) {
-    salr::load_rows(s.a, u, m0, M, r0, R, R);
-    salr::load_dense(s.b, b, r0, R, n0, N, N);
+  if constexpr (V::kTable) {
+    __shared__ float lut[16];
+    salr::load_nf4_table(lut);
     __syncthreads();
-    salr::mma_stage(s, delta);
-    __syncthreads();
+    // a loader built here, so the compiler sees lut in shared memory
+    const V with_lut{vals.codes, vals.scales, lut, vals.cap_t};
+    salr::salr_tile(s, x, words, with_lut, u, b, y, M, K, R, n_tiles, wpt, cap_t);
+  } else {
+    salr::salr_tile(s, x, words, vals, u, b, y, M, K, R, n_tiles, wpt, cap_t);
   }
-#pragma unroll
-  for (int i = 0; i < salr::ROWS_PER_THREAD; ++i) acc[i] += delta[i];
-  salr::store_tile(y, acc, M, N, m0, n0);
 }
 
-template <typename T>
-int launch(const void* x, const void* words, const void* values, const void* a,
-           const void* b, void* u, void* y, int M, int K, int R, int n_tiles, int wpt,
-           int cap_t, cudaStream_t stream) {
+template <typename T, typename V>
+int launch(const void* x, const void* words, V vals, const void* a, const void* b, void* u,
+           void* y, int M, int K, int R, int n_tiles, int wpt, int cap_t,
+           cudaStream_t stream) {
   const int m_blocks = (M + salr::BM - 1) / salr::BM;
-  dim3 grid_u((R + salr::BN - 1) / salr::BN, m_blocks);
-  adapter_u_kernel<T><<<grid_u, salr::THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), M, K, R);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R > 0) {  // a rank-0 layer has no adapter term
+    dim3 grid_u((R + salr::BN - 1) / salr::BN, m_blocks);
+    adapter_u_kernel<T, V><<<grid_u, salr::THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), M, K, R);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   dim3 grid(n_tiles * wpt, m_blocks);
-  salr_spmm_kernel<T><<<grid, salr::THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(words),
-      static_cast<const T*>(values), static_cast<const T*>(u), static_cast<const T*>(b),
-      static_cast<T*>(y), M, K, R, n_tiles, wpt, cap_t);
+  salr_spmm_kernel<T, V><<<grid, salr::THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint32_t*>(words), vals,
+      static_cast<const T*>(u), static_cast<const T*>(b), static_cast<T*>(y), M, K, R,
+      n_tiles, wpt, cap_t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -87,7 +90,8 @@ int launch(const void* x, const void* words, const void* values, const void* a,
 
 // x (M, K); words (K, n_tiles, wpt) uint32; values (K, n_tiles, cap_t);
 // a (K, R); b (R, n_tiles*wpt*32); u (M, R) scratch; y (M, n_tiles*wpt*32).
-// dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal of the tensors.  Returns cudaGetLastError() after the launches.
+// dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal of the
+// tensors.  Returns cudaGetLastError() after the launches.
 extern "C" int salr_spmm(const void* x, const void* words, const void* values, const void* a,
                          const void* b, void* u, void* y, int M, int K, int R, int n_tiles,
                          int wpt, int cap_t, int dtype, int device, void* stream) {
@@ -95,9 +99,30 @@ extern "C" int salr_spmm(const void* x, const void* words, const void* values, c
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, words, values, a, b, u, y, M, K, R, n_tiles, wpt, cap_t, st);
-  return launch<__nv_bfloat16>(x, words, values, a, b, u, y, M, K, R, n_tiles, wpt, cap_t,
-                               st);
+    return launch<float>(x, words, salr::PlainValues<float>{static_cast<const float*>(values),
+                                                             cap_t},
+                         a, b, u, y, M, K, R, n_tiles, wpt, cap_t, st);
+  using bf16 = __nv_bfloat16;
+  return launch<bf16>(x, words, salr::PlainValues<bf16>{static_cast<const bf16*>(values), cap_t},
+                      a, b, u, y, M, K, R, n_tiles, wpt, cap_t, st);
+}
+
+// As salr_spmm with the values in NF4: codes (K, n_tiles, cap_t/2) uint8,
+// interleaved (slot 2i low nibble, 2i+1 high); scales (K, n_tiles) f32.
+extern "C" int qsalr_spmm(const void* x, const void* words, const void* codes,
+                          const void* scales, const void* a, const void* b, void* u, void* y,
+                          int M, int K, int R, int n_tiles, int wpt, int cap_t, int dtype,
+                          int device, void* stream) {
+  cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* sc = static_cast<const float*>(scales);
+  if (dtype == 0)
+    return launch<float>(x, words, salr::NF4Values<float>{c, sc, nullptr, cap_t}, a, b, u, y,
+                         M, K, R, n_tiles, wpt, cap_t, st);
+  return launch<__nv_bfloat16>(x, words, salr::NF4Values<__nv_bfloat16>{c, sc, nullptr, cap_t},
+                               a, b, u, y, M, K, R, n_tiles, wpt, cap_t, st);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,5 +1,9 @@
-// Shared device code of the tiled-bitmap SpMM kernels (salr_spmm.cu,
-// bitmap_spmm.cu): the tiled-bitmap decode and one block-tile GEMM core.
+// Shared device code of the tiled-bitmap SpMM kernels (salr_spmm.cu:
+// salr_spmm and qsalr_spmm; bitmap_spmm.cu): the tiled-bitmap decode, one
+// block-tile GEMM core and the SALR adapter pieces.  The decode is
+// templated on how a set bit's value is fetched from its slot
+// (PlainValues: a stored value; NF4Values: an NF4 code x cell scale), so
+// the native and the NF4 kernels share it.
 //
 // Block tile: BM output rows x BN = 32 output columns (one bitmap word of
 // one column tile), 128 threads = 4 warps.  Lane l owns output column l;
@@ -12,9 +16,7 @@
 // that row independence).
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace salr {
 
@@ -24,17 +26,6 @@ constexpr int BK = 32;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS_PER_THREAD = BM / WARPS;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
-}
 
 struct Smem {
   float a[BM][BK];  // left operand stage: rows x reduction
@@ -67,19 +58,70 @@ __device__ __forceinline__ void load_dense(float (*dst)[BN], const T* __restrict
   }
 }
 
-// Decode rows [k0, k0+BK) of the block's bitmap word into dense f32.
-// Cell (k, tile) has wpt words and a compact segment of cap_t values; the
-// block's word is word `wi` of tile `ti`.  Lane l decodes column l: its
-// slot is the popcount of the cell's earlier words plus the bits below l
-// in its own word (the exclusive prefix popcount), clamped to cap_t - 1.
-// A warp decodes rows warp, warp+WARPS, ...: lane j first loads word j of
-// every row's cell (one coalesced load per row, all rows in flight), the
-// earlier words' popcounts are summed across lanes, then every lane
-// gathers its value, again with all rows' loads in flight.
+// How a set bit's value is read from its cell's slot: fetch() does the
+// slot's device-memory loads, value() turns what they returned into the
+// f32 operand.  kTable: the loader reads the NF4 level table from shared
+// memory, which the kernel fills and points ``lut`` at.  kFetchAll tells
+// the decode to issue every row's fetch before it computes any value.  On
+// the H100 that makes the NF4 decode-GEMM about a quarter faster (its
+// value needs a dependent table lookup, which otherwise holds each row's
+// loads back) but the plain one slower, which therefore keeps the
+// single-step form (PERF.md).
+
+// Stored values: values (cells, cap_t) of the operand type.
 template <typename T>
+struct PlainValues {
+  using Raw = T;
+  static constexpr bool kTable = false;
+  static constexpr bool kFetchAll = false;
+  const T* __restrict__ values;
+  int cap_t;
+  __device__ __forceinline__ Raw fetch(size_t cell, int slot) const {
+    return values[cell * cap_t + slot];
+  }
+  __device__ __forceinline__ float value(Raw r, int) const { return to_f32(r); }
+};
+
+// NF4-quantized values: codes (cells, cap_t/2), packed interleaved (slot
+// 2i in the low nibble of byte i, 2i+1 in the high), and one f32 absmax
+// scale per cell.  The value is level x scale in f32, rounded to the
+// operand type T (the reference rounds the decoded tile to x's dtype
+// before its product).  ``lut`` is the level table in shared memory.
+template <typename T>
+struct NF4Values {
+  struct Raw {
+    uint32_t byte;
+    float scale;
+  };
+  static constexpr bool kTable = true;
+  static constexpr bool kFetchAll = true;
+  const uint8_t* __restrict__ codes;
+  const float* __restrict__ scales;
+  const float* lut;
+  int cap_t;
+  __device__ __forceinline__ Raw fetch(size_t cell, int slot) const {
+    return {codes[cell * (cap_t / 2) + slot / 2], scales[cell]};
+  }
+  __device__ __forceinline__ float value(Raw r, int slot) const {
+    const uint32_t nib = (slot & 1) ? (r.byte >> 4) : (r.byte & 0x0Fu);
+    return round_to<T>(lut[nib] * r.scale);
+  }
+};
+
+// Decode rows [k0, k0+BK) of the block's bitmap word into dense f32.
+// Cell (k, tile) has wpt words and a compact segment of cap_t slots
+// (read through ``vals``); the block's word is word `wi` of tile `ti`.
+// Lane l decodes column l: its slot is the popcount of the cell's
+// earlier words plus the bits below l in its own word (the exclusive
+// prefix popcount), clamped to cap_t - 1.  A warp decodes rows warp,
+// warp+WARPS, ...: lane j first loads word j of every row's cell (one
+// coalesced load per row, all rows in flight), the earlier words'
+// popcounts are summed across lanes, then every lane reads its slot,
+// again with all rows' loads in flight.
+template <typename V>
 __device__ __forceinline__ void load_bitmap(float (*dst)[BN], const uint32_t* __restrict__ words,
-                                            const T* __restrict__ values, int k0, int K,
-                                            int n_tiles, int wpt, int cap_t, int ti, int wi) {
+                                            const V& vals, int k0, int K, int n_tiles, int wpt,
+                                            int cap_t, int ti, int wi) {
   constexpr int RPW = BK / WARPS;  // rows per warp
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   uint32_t cell_word[RPW];
@@ -89,6 +131,9 @@ __device__ __forceinline__ void load_bitmap(float (*dst)[BN], const uint32_t* __
     const size_t cell = (size_t)k * n_tiles + ti;
     cell_word[i] = (k < K && lane < wpt) ? words[cell * wpt + lane] : 0u;
   }
+  typename V::Raw raw[RPW];
+  int slot[RPW];
+  bool set[RPW];
   float v[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
@@ -96,8 +141,17 @@ __device__ __forceinline__ void load_bitmap(float (*dst)[BN], const uint32_t* __
     const size_t cell = (size_t)k * n_tiles + ti;
     const uint32_t word = __shfl_sync(0xffffffffu, cell_word[i], wi);
     const int prefix = __reduce_add_sync(0xffffffffu, lane < wi ? __popc(cell_word[i]) : 0);
-    const int slot = min(prefix + __popc(word & ((1u << lane) - 1u)), cap_t - 1);
-    v[i] = (k < K && ((word >> lane) & 1u)) ? to_f32(values[cell * cap_t + slot]) : 0.f;
+    slot[i] = min(prefix + __popc(word & ((1u << lane) - 1u)), cap_t - 1);
+    set[i] = k < K && ((word >> lane) & 1u);
+    if constexpr (V::kFetchAll) {
+      if (set[i]) raw[i] = vals.fetch(cell, slot[i]);
+    } else {
+      v[i] = set[i] ? vals.value(vals.fetch(cell, slot[i]), slot[i]) : 0.f;
+    }
+  }
+  if constexpr (V::kFetchAll) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) v[i] = set[i] ? vals.value(raw[i], slot[i]) : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < RPW; ++i) dst[warp + WARPS * i][lane] = v[i];
@@ -123,16 +177,16 @@ __device__ __forceinline__ void mma_stage(const Smem& s, float acc[ROWS_PER_THRE
 
 // y[m0:m0+BM, n0:n0+BN] of x (M, K) @ W_hat, W_hat in tiled bitmap form,
 // accumulated into acc.  Grid x enumerates the (tile, word) column blocks.
-template <typename T>
+template <typename T, typename V>
 __device__ __forceinline__ void bitmap_gemm(Smem& s, float acc[ROWS_PER_THREAD],
                                             const T* __restrict__ x,
-                                            const uint32_t* __restrict__ words,
-                                            const T* __restrict__ values, int M, int K,
-                                            int n_tiles, int wpt, int cap_t, int m0) {
+                                            const uint32_t* __restrict__ words, const V& vals,
+                                            int M, int K, int n_tiles, int wpt, int cap_t,
+                                            int m0) {
   int ti = blockIdx.x / wpt, wi = blockIdx.x % wpt;
   for (int k0 = 0; k0 < K; k0 += BK) {
     load_rows(s.a, x, m0, M, k0, K, K);
-    load_bitmap(s.b, words, values, k0, K, n_tiles, wpt, cap_t, ti, wi);
+    load_bitmap(s.b, words, vals, k0, K, n_tiles, wpt, cap_t, ti, wi);
     __syncthreads();
     mma_stage(s, acc);
     __syncthreads();
@@ -148,6 +202,51 @@ __device__ __forceinline__ void store_tile(T* __restrict__ y, const float acc[RO
     int m = m0 + warp + WARPS * i, n = n0 + lane;
     if (m < M && n < N) y[(size_t)m * N + n] = from_f32<T>(acc[i]);
   }
+}
+
+// u[m0:m0+BM, r0:r0+BN] = x @ A_cat, one rounding to T at the end (the
+// body of the SALR kernels' first launch; grid (ceil(R/BN), M blocks)).
+template <typename T>
+__device__ __forceinline__ void adapter_u(Smem& s, const T* __restrict__ x,
+                                          const T* __restrict__ a, T* __restrict__ u, int M,
+                                          int K, int R) {
+  float acc[ROWS_PER_THREAD] = {0.f};
+  int m0 = blockIdx.y * BM, r0 = blockIdx.x * BN;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    load_rows(s.a, x, m0, M, k0, K, K);
+    load_dense(s.b, a, k0, K, r0, R, R);
+    __syncthreads();
+    mma_stage(s, acc);
+    __syncthreads();
+  }
+  store_tile(u, acc, M, R, m0, r0);
+}
+
+// One output tile of y = x @ W_hat + u @ B_cat (the body of the SALR
+// kernels' second launch; grid (n_tiles*wpt, M blocks)): the bitmap
+// decode-GEMM, then the adapter term reduced in f32 and added before the
+// one rounding of y.
+template <typename T, typename V>
+__device__ __forceinline__ void salr_tile(Smem& s, const T* __restrict__ x,
+                                          const uint32_t* __restrict__ words, const V& vals,
+                                          const T* __restrict__ u, const T* __restrict__ b,
+                                          T* __restrict__ y, int M, int K, int R, int n_tiles,
+                                          int wpt, int cap_t) {
+  const int N = n_tiles * wpt * 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[ROWS_PER_THREAD] = {0.f};
+  bitmap_gemm(s, acc, x, words, vals, M, K, n_tiles, wpt, cap_t, m0);
+  float delta[ROWS_PER_THREAD] = {0.f};
+  for (int r0 = 0; r0 < R; r0 += BK) {
+    load_rows(s.a, u, m0, M, r0, R, R);
+    load_dense(s.b, b, r0, R, n0, N, N);
+    __syncthreads();
+    mma_stage(s, delta);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_THREAD; ++i) acc[i] += delta[i];
+  store_tile(y, acc, M, N, m0, n0);
 }
 
 }  // namespace salr

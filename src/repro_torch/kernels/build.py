@@ -3,8 +3,10 @@
 Each source compiles on its own (``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared -Xcompiler -fPIC``) into a shared library with
 a plain C interface under ``build/repro_torch_kernels/`` at the root of
-the checkout.  A library's file name carries a hash of its sources and
-flags, so an edit rebuilds it.  A failed build raises; nothing falls
+the checkout; one source may hold several kernels' entry points
+(``salr_spmm.cu`` holds two, ``quant_attention.cu`` four).  A library's
+file name carries a hash of its sources and flags, so an edit rebuilds
+it.  A failed build raises; nothing falls
 back to the plain PyTorch versions.  Pointers and the stream cross the
 boundary as ``c_void_p``; every entry returns the CUDA error code of its
 launch.
@@ -30,9 +32,14 @@ KERNELS = {
     "salr_spmm": ("salr_spmm.cu", [_P] * 7 + [_I] * 8 + [_P]),
     "bitmap_spmm": ("bitmap_spmm.cu", [_P] * 4 + [_I] * 7 + [_P]),
     "paged_gqa_attention": ("paged_attention.cu", [_P] * 6 + [_I] * 8 + [_P]),
+    "qsalr_spmm": ("salr_spmm.cu", [_P] * 8 + [_I] * 8 + [_P]),
+    "ring_quant_gqa_attention": ("quant_attention.cu", [_P] * 7 + [_I] * 7 + [_P]),
+    "ring_nf4_gqa_attention": ("quant_attention.cu", [_P] * 7 + [_I] * 7 + [_P]),
+    "paged_quant_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
+    "paged_nf4_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
 }
 
-_LIBS: dict = {}
+_LIBS: dict = {}                  # kernel name -> its loaded library
 
 
 def _nvcc() -> str:
@@ -44,17 +51,19 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library built from kernel ``name``'s source."""
     src = CSRC / KERNELS[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(f.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=tuple(KERNELS)) -> float:
-    """Compile every library in ``names`` that is not built yet, one nvcc
+    """Compile the libraries of ``names`` that are not built yet, one nvcc
     per source, all started together.  Returns the wall seconds spent."""
-    todo = [n for n in names if not library_path(n).exists()]
+    by_source = {KERNELS[n][0]: n for n in names}
+    todo = [n for n in by_source.values() if not library_path(n).exists()]
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -75,7 +84,7 @@ def build_all(names=tuple(KERNELS)) -> float:
         if rc == 0:
             os.replace(tmp, out)
         else:
-            failed.append(f"{n} (nvcc exit {rc}):\n"
+            failed.append(f"{KERNELS[n][0]} (nvcc exit {rc}):\n"
                           f"{out.with_suffix('.log').read_text()}")
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
@@ -87,6 +96,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all((name,))
+        # a handle per kernel (kernels of one source share the file)
         lib = ctypes.CDLL(str(library_path(name)))
         fn = getattr(lib, name)
         fn.argtypes = KERNELS[name][1]

@@ -18,7 +18,10 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"salr_spmm": 0, "bitmap_spmm": 0, "paged_gqa_attention": 0}
+LAUNCHES = {"salr_spmm": 0, "bitmap_spmm": 0, "paged_gqa_attention": 0,
+            "qsalr_spmm": 0, "ring_quant_gqa_attention": 0,
+            "paged_quant_gqa_attention": 0, "ring_nf4_gqa_attention": 0,
+            "paged_nf4_gqa_attention": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,7 +71,8 @@ def _flatten(x: torch.Tensor) -> tuple:
     return x.reshape(-1, x.shape[-1]).contiguous(), x.shape[:-1]
 
 
-def _check_tiled(name: str, x2: torch.Tensor, tbw: bm.TiledBitmapWeight) -> None:
+def _check_tiled(name: str, x2: torch.Tensor, tbw) -> None:
+    """The tiled layout a SpMM kernel takes (native or NF4 payload)."""
     if tbw.rows != x2.shape[1]:
         raise ValueError(f"{name}: x has K={x2.shape[1]}, weight {tbw.rows} rows")
     if tbw.tile % 32 or tbw.tile > 256 or tbw.n_tiles * tbw.tile != tbw.cols:
@@ -77,8 +81,29 @@ def _check_tiled(name: str, x2: torch.Tensor, tbw: bm.TiledBitmapWeight) -> None
     if tbw.cap_t % 8 or not 0 < tbw.cap_t <= tbw.tile:
         raise ValueError(f"{name}: cap_t {tbw.cap_t} must be a multiple of 8 "
                          f"up to the tile")
-    if tbw.words.dtype != torch.int32 or tbw.values.dtype != x2.dtype:
-        raise TypeError(f"{name}: words must be int32 and values {x2.dtype}")
+    if tbw.words.dtype != torch.int32:
+        raise TypeError(f"{name}: words must be int32")
+    if isinstance(tbw, bm.QTiledBitmapWeight):
+        cells = (tbw.rows, tbw.n_tiles)
+        if tbw.codes.shape != (*cells, tbw.cap_t // 2) or tbw.scales.shape != (*cells, 1):
+            raise ValueError(f"{name}: codes {tuple(tbw.codes.shape)} / scales "
+                             f"{tuple(tbw.scales.shape)} do not fit cells {cells}, "
+                             f"cap_t {tbw.cap_t}")
+        if tbw.codes.dtype != torch.uint8 or tbw.scales.dtype != torch.float32:
+            raise TypeError(f"{name}: codes must be uint8 and scales float32")
+    elif tbw.values.dtype != x2.dtype:
+        raise TypeError(f"{name}: values must be {x2.dtype}")
+
+
+def _check_adapters(name: str, tbw, a_cat: torch.Tensor, b_cat: torch.Tensor,
+                    allow_rank0: bool) -> int:
+    r = a_cat.shape[1]
+    if (a_cat.shape[0] != tbw.rows or b_cat.shape != (r, tbw.cols)
+            or (r == 0 and not allow_rank0)):
+        raise ValueError(f"{name}: adapter shapes {tuple(a_cat.shape)} / "
+                         f"{tuple(b_cat.shape)} do not fit ({tbw.rows}, R"
+                         f"{'' if allow_rank0 else '>0'}) / (R, {tbw.cols})")
+    return r
 
 
 def _pad_bcat(b_cat: torch.Tensor, cols: int) -> torch.Tensor:
@@ -118,11 +143,7 @@ def salr_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight,
     x2, lead = _flatten(x)
     _check_tiled(name, x2, tbw)
     b_cat = _pad_bcat(b_cat, tbw.cols)
-    r = a_cat.shape[1]
-    if a_cat.shape[0] != tbw.rows or b_cat.shape != (r, tbw.cols) or r == 0:
-        raise ValueError(f"{name}: adapter shapes {tuple(a_cat.shape)} / "
-                         f"{tuple(b_cat.shape)} do not fit ({tbw.rows}, R>0) / "
-                         f"(R, {tbw.cols})")
+    r = _check_adapters(name, tbw, a_cat, b_cat, allow_rank0=False)
     if _placement(name, x2, tbw.words, tbw.values, a_cat, b_cat) == "cpu":
         y = ref.salr_spmm_ref(x2, tbw, a_cat, b_cat)
     else:
@@ -174,3 +195,119 @@ def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,
                 v_pool.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
                 out.data_ptr(), b, h, kh, d, ps, page_table.shape[1], code)
     return out
+
+
+def qsalr_matmul(x: torch.Tensor, q: bm.QTiledBitmapWeight,
+                 a_cat: torch.Tensor, b_cat: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(W_hat) + (x @ A_cat) @ B_cat with W_hat an
+    NF4-quantized tiled bitmap, dequantized and decoded inside the GEMM.
+    x: (..., K); a_cat (K, R), b_cat (R, <= cols), R >= 0; returns
+    (..., q.cols)."""
+    name = "qsalr_spmm"
+    _forward_only(name, x, a_cat, b_cat)
+    x2, lead = _flatten(x)
+    _check_tiled(name, x2, q)
+    b_cat = _pad_bcat(b_cat, q.cols)
+    r = _check_adapters(name, q, a_cat, b_cat, allow_rank0=True)
+    if _placement(name, x2, q.words, q.codes, q.scales, a_cat, b_cat) == "cpu":
+        y = ref.qsalr_spmm_ref(x2, q, a_cat, b_cat)
+    else:
+        if a_cat.dtype != x2.dtype or b_cat.dtype != x2.dtype:
+            raise TypeError(f"{name}: adapters must be {x2.dtype}")
+        code = _check_cuda(name, x2.dtype, q.words, q.codes, q.scales, a_cat, b_cat)
+        m, k = x2.shape
+        u = torch.empty((m, r), dtype=x2.dtype, device=x2.device)
+        y = torch.empty((m, q.cols), dtype=x2.dtype, device=x2.device)
+        if m:
+            _launch(name, x2.device, x2.data_ptr(), q.words.data_ptr(),
+                    q.codes.data_ptr(), q.scales.data_ptr(), a_cat.data_ptr(),
+                    b_cat.data_ptr(), u.data_ptr(), y.data_ptr(), m, k, r, q.n_tiles,
+                    q.tile // 32, q.cap_t, code)
+    return y.reshape(*lead, q.cols)
+
+
+# per-block shared memory the quantized attention kernels may use
+_SMEM_LIMIT = 227 * 1024
+_KV_CODES = {"int8": torch.int8, "nf4": torch.uint8}
+
+
+def _quant_attention(name: str, kv: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, k_scale: torch.Tensor, v_scale: torch.Tensor,
+                     pos: torch.Tensor, page_table=None) -> torch.Tensor:
+    """Check and run one of the four quantized decode-attention kernels.
+    Ring (``page_table`` None): k/v (B, W, KH, dc), scales (B, W, KH).
+    Paged: k/v (P, page_size, KH, dc), scales (P, page_size, KH),
+    page_table (B, max_pages).  dc = d for int8, d/2 for NF4."""
+    tensors = (q, k, v, k_scale, v_scale, pos) + (() if page_table is None else (page_table,))
+    _forward_only(name, q)
+    b, one, h, d = q.shape
+    n0, n1, kh, dc = k.shape
+    want_dc = d if kv == "int8" else d // 2
+    paged = page_table is not None
+    if (one != 1 or dc != want_dc or v.shape != k.shape or h % kh
+            or k_scale.shape != (n0, n1, kh) or v_scale.shape != k_scale.shape
+            or pos.shape != (b,) or (paged and page_table.shape[0] != b)
+            or (not paged and n0 != b)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
+                         f"{tuple(v.shape)}, scales {tuple(k_scale.shape)}/"
+                         f"{tuple(v_scale.shape)}, pos {tuple(pos.shape)}"
+                         + (f", page table {tuple(page_table.shape)}" if paged else ""))
+    if k.dtype != _KV_CODES[kv] or v.dtype != _KV_CODES[kv]:
+        raise TypeError(f"{name}: K/V codes must be {_KV_CODES[kv]}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be float32")
+    if pos.dtype != torch.int32 or (paged and page_table.dtype != torch.int32):
+        raise TypeError(f"{name}: pos and page_table must be int32")
+    if _placement(name, *tensors) == "cpu":
+        fn = getattr(ref, name + "_ref")
+        return fn(q, k, v, k_scale, v_scale, page_table, pos) if paged else \
+            fn(q, k, v, k_scale, v_scale, pos)
+    g = h // kh
+    ctx = page_table.shape[1] * n1 if paged else n1
+    if g > 8 or d not in (32, 64, 128):
+        raise ValueError(f"{name}: kernel takes up to 8 query heads per KV head and "
+                         f"head dim 32/64/128 (got {g}, {d})")
+    if 4 * g * (d + ctx + 128) > _SMEM_LIMIT:    # q, scores, PV partial sums
+        raise ValueError(f"{name}: a context of {ctx} positions does not fit the "
+                         "kernel's shared-memory score buffer")
+    code = _check_cuda(name, q.dtype, *tensors)
+    out = torch.empty_like(q)
+    if b:
+        tail = (page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, kh, d,
+                n1, page_table.shape[1]) if paged else \
+            (pos.data_ptr(), out.data_ptr(), b, h, kh, d, n1)
+        _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), *tail, code)
+    return out
+
+
+def ring_quant_gqa_attention(q, k, v, k_scale, v_scale, pos) -> torch.Tensor:
+    """One-token GQA attention over a dense int8 cache.  q: (B, 1, H, d);
+    k/v: (B, W, KH, d) int8; scales: (B, W, KH) f32; pos: (B,) int32,
+    last live position per row (inclusive).  Returns (B, 1, H, d)."""
+    return _quant_attention("ring_quant_gqa_attention", "int8", q, k, v, k_scale,
+                            v_scale, pos)
+
+
+def ring_nf4_gqa_attention(q, k_codes, v_codes, k_scale, v_scale, pos) -> torch.Tensor:
+    """One-token GQA attention over a dense NF4 cache: codes (B, W, KH,
+    d/2) uint8, split-packed (byte i = element i low, i + d/2 high)."""
+    return _quant_attention("ring_nf4_gqa_attention", "nf4", q, k_codes, v_codes,
+                            k_scale, v_scale, pos)
+
+
+def paged_quant_gqa_attention(q, k_pool, v_pool, ks_pool, vs_pool, page_table,
+                              pos) -> torch.Tensor:
+    """One-token GQA attention over paged int8 pools (P, page_size, KH, d)
+    with scales (P, page_size, KH); page_table (B, max_pages) int32, page
+    0 the null page."""
+    return _quant_attention("paged_quant_gqa_attention", "int8", q, k_pool, v_pool,
+                            ks_pool, vs_pool, pos, page_table)
+
+
+def paged_nf4_gqa_attention(q, k_pool, v_pool, ks_pool, vs_pool, page_table,
+                            pos) -> torch.Tensor:
+    """One-token GQA attention over paged NF4 code pools (P, page_size, KH,
+    d/2) uint8, split-packed, with scales (P, page_size, KH)."""
+    return _quant_attention("paged_nf4_gqa_attention", "nf4", q, k_pool, v_pool,
+                            ks_pool, vs_pool, pos, page_table)

@@ -8,6 +8,7 @@ import math
 import torch
 
 from repro_torch.core import bitmap as bm
+from repro_torch.core.quant import nf4_levels
 
 NEG_INF = -1e30
 
@@ -22,6 +23,17 @@ def salr_spmm_ref(x: torch.Tensor, tbw: bm.TiledBitmapWeight,
     """y = x @ W_hat + (x @ A_cat) @ B_cat: f32 sums, u = x @ A_cat rounded
     to the operand dtype before its product with B_cat, one rounding of y."""
     base = x.float() @ bm.tile_decode(tbw).float()
+    u = (x.float() @ a_cat.float()).to(b_cat.dtype)
+    return (base + u.float() @ b_cat.float()).to(x.dtype)
+
+
+def qsalr_spmm_ref(x: torch.Tensor, q: bm.QTiledBitmapWeight,
+                   a_cat: torch.Tensor, b_cat: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(W_hat) + (x @ A_cat) @ B_cat: each stored value is
+    NF4 level x cell scale in f32, rounded to x's dtype (as the weight
+    tile enters the product); then the sums and roundings of
+    :func:`salr_spmm_ref`."""
+    base = x.float() @ bm.qtile_decode(q, dtype=x.dtype).float()
     u = (x.float() @ a_cat.float()).to(b_cat.dtype)
     return (base + u.float() @ b_cat.float()).to(x.dtype)
 
@@ -53,10 +65,78 @@ def paged_gqa_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     """One-token GQA attention over paged pools: gather each slot's pages
     into a dense (B, max_pages*page_size) cache, attend over positions
     <= pos[b]."""
-    b = q.shape[0]
-    n_pages, ps = page_table.shape[1], k_pool.shape[1]
-    w = n_pages * ps
-    k = k_pool[page_table].reshape(b, w, *k_pool.shape[2:])
-    v = v_pool[page_table].reshape(b, w, *v_pool.shape[2:])
-    valid = torch.arange(w, device=q.device)[None, :] <= pos[:, None]
-    return decode_attention(q, k, v, valid)
+    k, v = _gather_pages(k_pool, page_table), _gather_pages(v_pool, page_table)
+    return decode_attention(q, k, v, _valid(pos, k.shape[1]))
+
+
+def _valid(pos: torch.Tensor, w: int) -> torch.Tensor:
+    return torch.arange(w, device=pos.device)[None, :] <= pos[:, None]
+
+
+def _gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """(P, ps, ...) pool -> (B, max_pages*ps, ...) dense rows of each slot."""
+    g = pool[page_table.long()]
+    return g.reshape(page_table.shape[0], -1, *pool.shape[2:])
+
+
+def ring_quant_gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 k_scale: torch.Tensor, v_scale: torch.Tensor,
+                                 pos: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention over a dense int8 cache: each entry
+    dequantized as int8 -> f32 x scale -> q's dtype -> f32, then
+    :func:`decode_attention` over positions <= pos[b]."""
+    k_read = (k.float() * k_scale[..., None]).to(q.dtype)
+    v_read = (v.float() * v_scale[..., None]).to(q.dtype)
+    return decode_attention(q, k_read, v_read, _valid(pos, k.shape[1]))
+
+
+def _nf4_halves(codes: torch.Tensor, scale: torch.Tensor, dtype) -> tuple:
+    """Split-packed NF4 rows -> the two head-dim halves (low nibbles ->
+    [0, d/2), high -> [d/2, d)), level x scale in f32, rounded to
+    ``dtype``, widened to f32."""
+    levels = nf4_levels(codes.device)
+    lo = levels[(codes & 0x0F).long()] * scale[..., None]
+    hi = levels[(codes >> 4).long()] * scale[..., None]
+    return lo.to(dtype).float(), hi.to(dtype).float()
+
+
+def ring_nf4_gqa_attention_ref(q: torch.Tensor, k_codes: torch.Tensor,
+                               v_codes: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention over a dense NF4 cache (split packing): the
+    score is the sum of two half-width dots (low and high nibbles), the
+    PV product is taken per half; f32 throughout, dead positions masked
+    and their V rows zeroed, one rounding to q's dtype."""
+    b, _, h, dk = q.shape
+    w, kh = k_codes.shape[1], k_codes.shape[2]
+    valid = _valid(pos, w)
+    k_lo, k_hi = _nf4_halves(k_codes, k_scale, q.dtype)
+    v_lo, v_hi = _nf4_halves(v_codes, v_scale, q.dtype)
+    qg = q.reshape(b, kh, h // kh, dk).float()
+    d2 = dk // 2
+    s = (torch.einsum("bhgd,bkhd->bhgk", qg[..., :d2], k_lo)
+         + torch.einsum("bhgd,bkhd->bhgk", qg[..., d2:], k_hi)) / math.sqrt(dk)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    live = valid[:, :, None, None]
+    out = torch.cat([torch.einsum("bhgk,bkhd->bhgd", p, torch.where(live, vh, 0.0))
+                     for vh in (v_lo, v_hi)], dim=-1)
+    return out.reshape(b, 1, h, -1).to(q.dtype)
+
+
+def paged_quant_gqa_attention_ref(q, k_pool, v_pool, ks_pool, vs_pool, page_table,
+                                  pos) -> torch.Tensor:
+    """:func:`ring_quant_gqa_attention_ref` over each slot's pages
+    gathered into dense rows."""
+    return ring_quant_gqa_attention_ref(
+        q, *(_gather_pages(t, page_table) for t in (k_pool, v_pool, ks_pool, vs_pool)),
+        pos)
+
+
+def paged_nf4_gqa_attention_ref(q, k_pool, v_pool, ks_pool, vs_pool, page_table,
+                                pos) -> torch.Tensor:
+    """:func:`ring_nf4_gqa_attention_ref` over each slot's pages gathered
+    into dense rows."""
+    return ring_nf4_gqa_attention_ref(
+        q, *(_gather_pages(t, page_table) for t in (k_pool, v_pool, ks_pool, vs_pool)),
+        pos)

@@ -8,12 +8,14 @@ causally invisible during prefill and masked (then overwritten) by the
 per-slot decode position, so padding changes no token.
 
 KV storage is PAGED when the resolved plan's decode route says so (the
-resolver default): each layer's K/V live in a global pool of
+resolver default), at the decode route's KV precision (native, int8 or
+NF4): each layer's K/V live in a global pool of
 ``page_size``-position pages with a per-slot ``page_table``.  A
 host-side reference-counted ``PagePool`` hands out pages at admission,
 and a ``RadixCache`` over prompt token ids lets a later request reuse the
 full prompt pages an earlier one prefilled: the hit prefix is gathered
-into a dense batch=1 cache and only the prompt suffix is prefilled.
+into a dense batch=1 cache and only the prompt suffix is prefilled
+(native decode KV only: a quantized pool turns sharing off).
 Admission is FIFO and memory-pressure aware (the head waits while free
 pages, after LRU eviction of unreferenced radix leaves, do not suffice).
 
@@ -253,14 +255,19 @@ class ContinuousBatchingEngine:
         self.max_pages = -(-ecfg.max_ctx // ecfg.page_size)
         self.n_pages = (ecfg.n_pages if ecfg.n_pages is not None
                         else ecfg.n_slots * self.max_pages + 1)
-        self.sharable = self.paged and ecfg.prefix_sharing
+        # the decode cache is allocated at the decode route's KV
+        # precision; a native prefill cache is quantized at insert.  Shared
+        # prefix pages would have to be gathered back into a native prefix
+        # cache, so sharing needs native decode KV
+        kv_dt = self.plan.kv_dtype("decode")
+        self.sharable = self.paged and ecfg.prefix_sharing and kv_dt == "native"
         if self.paged:
             self.cache = M.init_paged_slot_cache(
                 cfg, ecfg.n_slots, ecfg.max_ctx, page_size=ecfg.page_size,
-                n_pages=self.n_pages, device=self.device)
+                n_pages=self.n_pages, device=self.device, kv_dtype=kv_dt)
         else:
             self.cache = M.init_slot_cache(cfg, ecfg.n_slots, ecfg.max_ctx,
-                                           self.device)
+                                           self.device, kv_dtype=kv_dt)
         self.reset()
 
     @torch.inference_mode()
@@ -510,5 +517,10 @@ class ContinuousBatchingEngine:
             "evictions": self.n_evictions,
             "backend": self.ecfg.backend if self.ecfg.plan is None else "custom-plan",
             "plan": self.plan.describe(),
+            # the precision each phase ran at (an explicit plan overrides
+            # the config's knobs)
+            "precision": {ph: {"repr": self.plan.base_repr(ph),
+                               "kv_dtype": self.plan.kv_dtype(ph)}
+                          for ph in execplan.PHASES},
             "device": str(self.device),
         }

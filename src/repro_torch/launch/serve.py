@@ -30,11 +30,44 @@ from repro_torch.core import execplan
 from repro_torch.device import resolve_device
 from repro_torch.launch.engine import ContinuousBatchingEngine, EngineConfig, Request
 from repro_torch.models import model as M
-from repro_torch.train.step import greedy_generate
+from repro_torch.train.step import greedy_generate, replay_logits
 
 # a near-tie is a top-2 gap within this many standard deviations of the
 # rounding noise on a logit gap
 NEAR_TIE_SIGMAS = 3.0
+
+_KERNEL_ROUTES = {
+    "bitmap": "ops.salr_matmul (fused bitmap decode+GEMM+adapters)",
+    "bitmap_nf4": "ops.qsalr_matmul (NF4 dequant-in-kernel)",
+}
+_ATTENTION_ROUTES = {
+    ("paged", "native"): "ops.paged_gqa_attention",
+    ("paged", "int8"): "ops.paged_quant_gqa_attention",
+    ("paged", "nf4"): "ops.paged_nf4_gqa_attention",
+    ("dense", "native"): "plain decode attention",
+    ("dense", "int8"): "ops.ring_quant_gqa_attention",
+    ("dense", "nf4"): "ops.ring_nf4_gqa_attention",
+}
+
+
+def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
+    """Per-phase route line: which op every SALR linear runs and, for
+    decode, which attention op reads the cache in the plan's decode
+    layout.  A quantized decode repr reads the NF4 twin, which
+    ``compress_linear`` emits whenever the config asks for one."""
+    parts = []
+    for phase in ("prefill", "decode"):
+        r = plan.route(phase)
+        quant = r.repr != "native" and (cfg.salr.dual_repr or cfg.salr.decode_repr)
+        if r.linear != "kernel":
+            desc = "dense decode + GEMM"
+        else:
+            desc = _KERNEL_ROUTES["bitmap_nf4" if quant else cfg.salr.method]
+        desc += f", kv_dtype={r.kv_dtype}"
+        if phase == "decode":
+            desc += f", attention={_ATTENTION_ROUTES[r.kv, r.kv_dtype]}"
+        parts.append(f"route[{phase}]={desc}")
+    return "  ".join(parts)
 
 
 def request_prompts(cfg, n: int, prompt_len: int, seed: int,
@@ -79,13 +112,20 @@ def parity_report(cfg, params, prompts: np.ndarray, greedy: np.ndarray,
                   results: dict, plan) -> list:
     """Per diverging request: (rid, step, top-2 logit gap, near-tie limit,
     near_tie).  The logits are greedy's at the first diverging step,
-    recomputed by prefilling the prompt and greedy's tokens before it on
-    ``plan`` and on the reference route.  The rms difference of the two
-    routes' logits at that position measures the noise bf16 rounding at
-    other places puts on one logit; a gap carries sqrt(2) times it, and
-    the limit is ``NEAR_TIE_SIGMAS`` of that."""
+    recomputed on ``plan`` and on the reference route (the same base repr
+    and KV precision, with plain linears and attention).  The rms
+    difference of the two routes' logits at that step measures the noise
+    bf16 rounding at other places puts on one logit; a gap carries
+    sqrt(2) times it, and the limit is ``NEAR_TIE_SIGMAS`` of that.
+
+    Where decode reads another base repr or KV precision than prefill (a
+    mixed-precision plan), a step after the first is recomputed by
+    replaying greedy's decode up to it (``replay_logits``); otherwise by
+    prefilling the prompt and greedy's tokens before the step."""
     dev = M.params_device(params)
     ref_plan = execplan.resolve_plan(cfg, backend="reference")
+    mixed = any(getattr(plan.route("decode"), f) != getattr(plan.route("prefill"), f)
+                for f in ("repr", "kv_dtype"))
     out = []
     for i, p in enumerate(prompts):
         eng_toks = np.asarray(results[i].tokens)
@@ -93,10 +133,16 @@ def parity_report(cfg, params, prompts: np.ndarray, greedy: np.ndarray,
         if not len(diff):
             continue
         step = int(diff[0])
-        seq = np.concatenate([p, greedy[i, :step]])[None].astype(np.int32)
-        seq = torch.from_numpy(seq).to(dev)
-        logits = M.prefill(params, cfg, seq, plan=plan)[0][0, -1].float()
-        ref_logits = M.prefill(params, cfg, seq, plan=ref_plan)[0][0, -1].float()
+        if mixed and step > 0:
+            prompt = torch.from_numpy(p[None].astype(np.int32)).to(dev)
+            toks = torch.from_numpy(greedy[i:i + 1, :step + 1].astype(np.int32)).to(dev)
+            logits, ref_logits = (replay_logits(params, cfg, prompt, toks, plan=pl)[0, -1]
+                                  for pl in (plan, ref_plan))
+        else:
+            seq = np.concatenate([p, greedy[i, :step]])[None].astype(np.int32)
+            seq = torch.from_numpy(seq).to(dev)
+            logits, ref_logits = (M.prefill(params, cfg, seq, plan=pl)[0][0, -1].float()
+                                  for pl in (plan, ref_plan))
         top2 = logits.topk(2).values.cpu().numpy()
         gap = float(top2[0] - top2[1])
         noise = float((logits - ref_logits).square().mean().sqrt())
@@ -142,6 +188,7 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         for b in backends:
             plan = execplan.resolve_plan(cfg, backend=b)
+            print(f"backend={b}: {route_line(cfg, plan)}")
             greedy = None
             if args.engine in ("batch", "both"):
                 greedy, dt = run_batch(cfg, params, prompts, args.gen, args.batch, plan)

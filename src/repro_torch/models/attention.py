@@ -1,6 +1,13 @@
-"""GQA attention with native-precision KV caches: blockwise (online
-softmax) attention for train/prefill, one-token decode over a dense
-slot cache (plain torch) or a paged pool (the paged-attention kernel).
+"""GQA attention: blockwise (online softmax) attention for train and
+prefill, one-token decode over a dense slot cache or a paged pool.
+
+KV caches come in three precisions: native (the model dtype), int8 and
+NF4, each with one f32 absmax scale per (position, KV head).  Decode over
+a native dense cache is plain torch; every other decode runs a kernel
+(paged native, ring/paged int8, ring/paged NF4) on the kernel route and
+that kernel's plain version on the reference route.  NF4 KV codes use the
+SPLIT nibble layout (byte i of a head-dim row holds element i low and
+element i + d/2 high), unlike the weights' interleaved layout.
 
 Caches are updated IN PLACE at decode (the reference builds new arrays
 each step): the engine owns one cache for its lifetime, and an in-place
@@ -15,10 +22,12 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.core.quant import nf4_index, nf4_levels
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import NEG_INF, decode_attention
 from repro_torch.models.layers import (apply_linear, apply_rmsnorm, apply_rope,
                                        init_linear, init_rmsnorm)
+
 
 @dataclasses.dataclass
 class KVCache:
@@ -35,6 +44,85 @@ class PagedKVCache:
     dead page-table entries point at."""
     k: torch.Tensor   # (P, page_size, KH, dk)
     v: torch.Tensor   # (P, page_size, KH, dv)
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """int8 dense cache with per-(position, KV head) absmax scales."""
+    k: torch.Tensor        # (B, W, KH, dk) int8
+    v: torch.Tensor        # (B, W, KH, dv) int8
+    k_scale: torch.Tensor  # (B, W, KH) f32
+    v_scale: torch.Tensor  # (B, W, KH) f32
+
+
+@dataclasses.dataclass
+class NF4KVCache:
+    """NF4 dense cache: split-packed codes with per-(position, KV head)
+    absmax scales."""
+    k: torch.Tensor        # (B, W, KH, dk/2) uint8
+    v: torch.Tensor        # (B, W, KH, dv/2) uint8
+    k_scale: torch.Tensor  # (B, W, KH) f32
+    v_scale: torch.Tensor  # (B, W, KH) f32
+
+
+@dataclasses.dataclass
+class PagedQuantKVCache:
+    """Paged int8 pools + per-(position, KV head) scales."""
+    k: torch.Tensor        # (P, page_size, KH, dk) int8
+    v: torch.Tensor        # (P, page_size, KH, dv) int8
+    k_scale: torch.Tensor  # (P, page_size, KH) f32
+    v_scale: torch.Tensor  # (P, page_size, KH) f32
+
+
+@dataclasses.dataclass
+class PagedNF4KVCache:
+    """Paged NF4 code pools (split packing) + per-(position, KV head)
+    scales."""
+    k: torch.Tensor        # (P, page_size, KH, dk/2) uint8
+    v: torch.Tensor        # (P, page_size, KH, dv/2) uint8
+    k_scale: torch.Tensor  # (P, page_size, KH) f32
+    v_scale: torch.Tensor  # (P, page_size, KH) f32
+
+
+def q8(x: torch.Tensor):
+    """x: (..., d) -> (int8 codes, f32 scale (...)): absmax / 127 per row,
+    round half to even, clip to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dq8(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 -> f32 x scale -> ``dtype``."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def qnf4(x: torch.Tensor):
+    """x: (..., d) -> (split-packed uint8 codes (..., d/2), f32 absmax
+    scale (...)): byte i holds element i low and element i + d/2 high."""
+    d = x.shape[-1]
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8)
+    idx = nf4_index(xf / scale[..., None])
+    return idx[..., :d // 2] | (idx[..., d // 2:] << 4), scale
+
+
+def dqnf4(codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`qnf4`: low nibbles -> head dims [0, d/2), high
+    nibbles -> [d/2, d); level x scale in f32, then ``dtype``."""
+    levels = nf4_levels(codes.device)
+    idx = torch.cat([codes & 0x0F, codes >> 4], dim=-1).long()
+    return (levels[idx] * scale[..., None]).to(dtype)
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor, kv_dtype: str):
+    """A dense cache of native K/V at ``kv_dtype`` (native, int8, nf4)."""
+    if kv_dtype == "native":
+        return KVCache(k=k, v=v)
+    fn, cls = {"int8": (q8, QuantKVCache), "nf4": (qnf4, NF4KVCache)}[kv_dtype]
+    (kq, ks), (vq, vs) = fn(k), fn(v)
+    return cls(k=kq, v=vq, k_scale=ks, v_scale=vs)
 
 
 def pos_vector(pos, batch: int, device) -> torch.Tensor:
@@ -143,41 +231,88 @@ def apply_gqa(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
         else:
             k_att, v_att = k, v
         y = blockwise_attention(q, k_att, v_att, causal=True, q_offset=q_offset)
-        new_cache = KVCache(k=k, v=v) if mode == "prefill" else None
+        new_cache = None
+        if mode == "prefill":
+            new_cache = quantize_kv(k, v, getattr(route, "kv_dtype", "native"))
     else:
         b = x.shape[0]
         pv = pos_vector(pos, b, x.device)
         rows = torch.arange(b, device=x.device)
         q = apply_rope(q, pv[:, None], cfg.rope_theta)
         k = apply_rope(k, pv[:, None], cfg.rope_theta)
-        if isinstance(cache, PagedKVCache):
+        if isinstance(cache, (PagedKVCache, PagedQuantKVCache, PagedNF4KVCache)):
             ps = cache.k.shape[1]
-            pages = page_table[rows, (pv // ps).long()]
-            off = (pv % ps).long()
-            cache.k[pages, off] = k[:, 0]
-            cache.v[pages, off] = v[:, 0]
-            y = ops.paged_gqa_attention(q, cache.k, cache.v, page_table, pv)
-        elif isinstance(cache, KVCache):
-            cache.k[rows, pv.long()] = k[:, 0]
-            cache.v[rows, pv.long()] = v[:, 0]
+            where = (page_table[rows, (pv // ps).long()], (pv % ps).long())
+        elif isinstance(cache, (KVCache, QuantKVCache, NF4KVCache)):
+            where = (rows, pv.long())
+        else:
+            raise TypeError(f"decode needs a KV cache, got {type(cache)}")
+        _write(cache, where, quantize_kv(k, v, KV_DTYPE_OF[type(cache)]))
+        if type(cache) is KVCache:
             valid = torch.arange(cache.k.shape[1], device=x.device)[None, :] <= pv[:, None]
             y = decode_attention(q, cache.k, cache.v, valid)
         else:
-            raise TypeError(f"decode needs a KVCache or PagedKVCache, got {type(cache)}")
+            # the reference route reads the cache through the kernel's
+            # plain version, so no kernel takes part in a reference run
+            name, paged = _DECODE_ATTENTION[type(cache)]
+            fn = (getattr(ref, name + "_ref") if getattr(route, "linear", None) == "reference"
+                  else getattr(ops, name))
+            kv = [getattr(cache, f.name) for f in dataclasses.fields(cache)]  # k, v[, scales]
+            y = fn(q, *kv, *((page_table,) if paged else ()), pv)
         new_cache = cache
     y = apply_linear(p["wo"], y.reshape(*y.shape[:2], h * hd), route)
     return x + y, new_cache
 
 
-def init_gqa_cache(cfg: ArchConfig, batch: int, ctx: int, dtype, device) -> KVCache:
-    shape = (batch, ctx, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+# the KV precision each cache type stores
+KV_DTYPE_OF = {KVCache: "native", QuantKVCache: "int8", NF4KVCache: "nf4",
+             PagedKVCache: "native", PagedQuantKVCache: "int8", PagedNF4KVCache: "nf4"}
+# the decode-attention kernel (ops) and plain version (ref, + "_ref") of
+# each cache type a kernel reads, and whether it takes a page table
+_DECODE_ATTENTION = {PagedKVCache: ("paged_gqa_attention", True),
+                     PagedQuantKVCache: ("paged_quant_gqa_attention", True),
+                     PagedNF4KVCache: ("paged_nf4_gqa_attention", True),
+                     QuantKVCache: ("ring_quant_gqa_attention", False),
+                     NF4KVCache: ("ring_nf4_gqa_attention", False)}
+
+
+def _write(cache, where: tuple, step) -> None:
+    """Write one position per row (``step``: a cache of the same precision
+    holding (B, 1, ...) entries) at ``where`` = (row or page, position or
+    offset) index tensors, in place."""
+    for f in dataclasses.fields(cache):
+        getattr(cache, f.name)[where] = getattr(step, f.name)[:, 0]
+
+
+def _alloc(lead: tuple, cfg: ArchConfig, dtype, kv_dtype: str, device, paged: bool):
+    """Zero K/V (and scales) of shape ``lead + (KH, d)`` at ``kv_dtype``."""
+    kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if kv_dtype == "native":
+        cls = PagedKVCache if paged else KVCache
+        return cls(*(torch.zeros(lead + (kh, hd), dtype=dtype, device=device)
+                     for _ in range(2)))
+    if kv_dtype not in ("int8", "nf4"):
+        raise ValueError(f"unknown KV dtype {kv_dtype!r}")
+    int8 = kv_dtype == "int8"
+    cls = {(True, False): QuantKVCache, (False, False): NF4KVCache,
+           (True, True): PagedQuantKVCache, (False, True): PagedNF4KVCache}[int8, paged]
+    codes = lead + (kh, hd if int8 else hd // 2)
+    cdt = torch.int8 if int8 else torch.uint8
+    return cls(k=torch.zeros(codes, dtype=cdt, device=device),
+               v=torch.zeros(codes, dtype=cdt, device=device),
+               k_scale=torch.zeros(lead + (kh,), dtype=torch.float32, device=device),
+               v_scale=torch.zeros(lead + (kh,), dtype=torch.float32, device=device))
+
+
+def init_gqa_cache(cfg: ArchConfig, batch: int, ctx: int, dtype, device,
+                   kv_dtype: str = None):
+    """Dense (batch, ctx) cache at ``kv_dtype`` (default ``cfg.kv_cache``)."""
+    return _alloc((batch, ctx), cfg, dtype, kv_dtype or cfg.kv_cache, device, False)
 
 
 def init_paged_gqa_cache(cfg: ArchConfig, n_pages: int, page_size: int, dtype,
-                         device) -> PagedKVCache:
-    """Global K/V page pool (page 0 = reserved null page)."""
-    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                        v=torch.zeros(shape, dtype=dtype, device=device))
+                         device, kv_dtype: str = None):
+    """Global K/V page pool (page 0 = reserved null page) at ``kv_dtype``
+    (default ``cfg.kv_cache``)."""
+    return _alloc((n_pages, page_size), cfg, dtype, kv_dtype or cfg.kv_cache, device,
+                  True)

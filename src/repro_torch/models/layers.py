@@ -23,9 +23,11 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 
 def salr_cfg_for(cfg: ArchConfig) -> SALRConfig:
     s = cfg.salr
+    # a quantized decode repr needs the twin, so it switches dual_repr on
+    dual = s.dual_repr or s.decode_repr not in (None, "native")
     return SALRConfig(sparsity=s.sparsity, method=s.method,
                       lora_rank=s.lora_rank, res_rank=s.res_rank,
-                      dtype=cfg.dtype, backend=s.backend)
+                      dtype=cfg.dtype, backend=s.backend, dual_repr=dual)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, cfg: ArchConfig,
@@ -38,13 +40,17 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, cfg: ArchConfig,
     return {"w": w.to(model_dtype(cfg))}
 
 
-def apply_linear(p, x: torch.Tensor, route=None, backend=None) -> torch.Tensor:
-    """SALR layers follow the explicit ``backend``, else the threaded
-    phase ``route`` (``core.execplan.PhaseRoute``), else the layer's own."""
+def apply_linear(p, x: torch.Tensor, route=None, backend=None,
+                 base_repr=None) -> torch.Tensor:
+    """SALR layers follow the explicit ``backend`` / ``base_repr``, else
+    the threaded phase ``route`` (``core.execplan.PhaseRoute``: its
+    ``linear`` and ``repr``), else the plan scope and the layer's own."""
     if isinstance(p, SALRLinear):
         if backend is None and route is not None:
             backend = route.linear
-        return apply_salr(x, p, backend=backend)
+        if base_repr is None and route is not None:
+            base_repr = route.repr
+        return apply_salr(x, p, backend=backend, base_repr=base_repr)
     return x @ p["w"]
 
 

@@ -10,6 +10,7 @@ stacked repeats).  Caches mirror that: ``{"layers": [{"mixer": cache}],
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -121,39 +122,64 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos,
     return apply_lm_head(params["lm_head"], x), cache
 
 
-def init_cache(cfg: ArchConfig, batch: int, ctx: int, device):
-    """Dense decode cache: one (batch, ctx) KVCache per layer."""
+def init_cache(cfg: ArchConfig, batch: int, ctx: int, device, kv_dtype: str = None):
+    """Dense decode cache: one (batch, ctx) cache per layer at
+    ``kv_dtype`` (default ``cfg.kv_cache``; pass the decode route's)."""
     dt = model_dtype(cfg)
-    return {"layers": [{"mixer": attn.init_gqa_cache(cfg, batch, ctx, dt, device)}
+    return {"layers": [{"mixer": attn.init_gqa_cache(cfg, batch, ctx, dt, device,
+                                                     kv_dtype=kv_dtype)}
                        for _ in layer_kinds(cfg)]}
 
 
-def init_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, device):
+def init_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, device,
+                    kv_dtype: str = None):
     """Decode cache of a continuous-batching slot batch: row b serves one
     request at a time and is overwritten by the next."""
-    return init_cache(cfg, n_slots, ctx, device)
+    return init_cache(cfg, n_slots, ctx, device, kv_dtype=kv_dtype)
+
+
+def quantize_request(slot_obj, req_obj):
+    """Quantize-at-insert: a native prefill cache headed into a quantized
+    decode cache is quantized here, once per position (mixed-precision
+    plans prefill at full precision).  A request cache already at the
+    slot cache's precision passes through."""
+    want = attn.KV_DTYPE_OF[type(slot_obj)]
+    have = attn.KV_DTYPE_OF[type(req_obj)]
+    if have == want:
+        return req_obj
+    if have != "native":
+        raise TypeError(f"cannot insert a {have} request cache into a {want} cache")
+    return attn.quantize_kv(req_obj.k, req_obj.v, want)
+
+
+def cache_fields(obj) -> list:
+    """(name, tensor) of every field of a cache object."""
+    return [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
 
 
 def insert_cache_slot(cache, request_cache, slot: int):
     """Write a batch=1 prefill cache into row ``slot`` at time offset 0
-    (in place).  Later positions keep the previous occupant's entries,
-    which decode masks by the slot's position."""
+    (in place), quantized first if the slot cache is.  Later positions
+    keep the previous occupant's entries, which decode masks by the
+    slot's position."""
     for lc, rc in zip(cache["layers"], request_cache["layers"]):
-        t = rc["mixer"].k.shape[1]
-        lc["mixer"].k[slot, :t] = rc["mixer"].k[0]
-        lc["mixer"].v[slot, :t] = rc["mixer"].v[0]
+        req = quantize_request(lc["mixer"], rc["mixer"])
+        for name, t in cache_fields(lc["mixer"]):
+            src = getattr(req, name)[0]
+            t[slot, :src.shape[0]] = src.to(t.dtype)
     return cache
 
 
 def init_paged_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, *,
-                          page_size: int, n_pages: int, device):
-    """Paged decode cache: per layer one global K/V page pool, plus
-    ``page_table`` (n_slots, ceil(ctx/page_size)) int32.  Pool page 0 is
-    the reserved null page, so the all-zero table owns no pages."""
+                          page_size: int, n_pages: int, device, kv_dtype: str = None):
+    """Paged decode cache: per layer one global K/V page pool at
+    ``kv_dtype`` (default ``cfg.kv_cache``), plus ``page_table``
+    (n_slots, ceil(ctx/page_size)) int32.  Pool page 0 is the reserved
+    null page, so the all-zero table owns no pages."""
     dt = model_dtype(cfg)
     max_pages = -(-ctx // page_size)
     return {"layers": [{"mixer": attn.init_paged_gqa_cache(cfg, n_pages, page_size,
-                                                           dt, device)}
+                                                           dt, device, kv_dtype=kv_dtype)}
                        for _ in layer_kinds(cfg)],
             "page_table": torch.zeros((n_slots, max_pages), dtype=torch.int32,
                                       device=device)}
@@ -161,27 +187,32 @@ def init_paged_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, *,
 
 def insert_paged_cache_slot(cache, request_cache, slot: int, start: int):
     """Scatter a batch=1 dense prefill cache into the pool pages slot
-    ``slot`` owns (in place).  The slot's ``page_table`` row must be
-    written first: request position ``start + t`` lands at page
-    ``page_table[slot, (start+t) // page_size]``, offset ``% page_size``;
-    pad-tail positions past the allocation map to the null page."""
+    ``slot`` owns (in place), quantized first if the pools are.  The
+    slot's ``page_table`` row must be written first: request position
+    ``start + t`` lands at page ``page_table[slot, (start+t) // page_size]``,
+    offset ``% page_size``; pad-tail positions past the allocation map to
+    the null page."""
     page_row = cache["page_table"][slot].long()
     for lc, rc in zip(cache["layers"], request_cache["layers"]):
-        pool, req = lc["mixer"], rc["mixer"]
+        pool = lc["mixer"]
+        req = quantize_request(pool, rc["mixer"])
         ps, t = pool.k.shape[1], req.k.shape[1]
         positions = start + torch.arange(t, device=pool.k.device)
         pages, off = page_row[positions // ps], positions % ps
-        pool.k[pages, off] = req.k[0].to(pool.k.dtype)
-        pool.v[pages, off] = req.v[0].to(pool.v.dtype)
+        for name, dst in cache_fields(pool):
+            dst[pages, off] = getattr(req, name)[0].to(dst.dtype)
     return cache
 
 
 def gather_prefix_cache(cache, page_row: torch.Tensor):
     """Gather the pool pages in ``page_row`` ((n_hit,) int) into a dense
-    batch=1 prefix cache for continuation prefill."""
+    batch=1 prefix cache for continuation prefill (native pools only:
+    prefix sharing is off when decode KV is quantized)."""
     layers = []
     for lc in cache["layers"]:
         pool = lc["mixer"]
+        if not isinstance(pool, attn.PagedKVCache):
+            raise TypeError(f"prefix sharing needs native pools, got {type(pool).__name__}")
         k, v = pool.k[page_row], pool.v[page_row]
         layers.append({"mixer": attn.KVCache(k=k.reshape(1, -1, *k.shape[2:]),
                                              v=v.reshape(1, -1, *v.shape[2:]))})
@@ -193,6 +224,6 @@ def clear_cache_slot(cache, slot: int):
     correctness -- insert and position masking hide stale state -- but
     useful for tests and debugging."""
     for lc in cache["layers"]:
-        lc["mixer"].k[slot] = 0
-        lc["mixer"].v[slot] = 0
+        for _, t in cache_fields(lc["mixer"]):
+            t[slot] = 0
     return cache

@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import bitmap as tbm
 from repro_torch.core import prune
 from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as attn
 
 # kernel and plain version both sum in f32 and round once: only the
 # summation order differs (in bf16 it flips the rounding of a few
@@ -73,6 +74,91 @@ def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, dtype):
     vp[0] = float("nan")
     torch.testing.assert_close(ops.paged_gqa_attention(q, kp, vp, table, pos), y,
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile,cap_t", [(32, 32), (96, 72), (192, 128), (256, 160)])
+def test_qsalr_kernel_matches_plain_and_rows_are_independent(cuda, tile, cap_t, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(tile + 1)
+    k, n = 100, 2 * tile
+    w = (torch.randn((k, n), generator=gen, device=cuda) / 10).to(dtype)
+    mask = prune.magnitude_mask(w, 0.5)
+    tbw, _ = tbm.tile_encode(prune.apply_mask(w, mask), mask, tile, cap_t)
+    q, _ = tbm.tile_quantize_nf4(tbw)
+    for m in (1, 4, 8, 33, 100):              # 4 and 8: the main path's decode batches
+        x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        a = torch.randn((k, 24), generator=gen, device=cuda).to(dtype)
+        b = torch.randn((24, n), generator=gen, device=cuda).to(dtype)
+        y = ops.qsalr_matmul(x, q, a, b)
+        assert _close(y, ref.qsalr_spmm_ref(x, q, a, b), dtype)
+        a0 = torch.zeros((k, 0), device=cuda, dtype=dtype)
+        b0 = torch.zeros((0, n), device=cuda, dtype=dtype)
+        assert _close(ops.qsalr_matmul(x, q, a0, b0), ref.qsalr_spmm_ref(x, q, a0, b0), dtype)
+        # row independence: a row's result does not depend on the batch
+        torch.testing.assert_close(ops.qsalr_matmul(x[:1], q, a, b), y[:1], rtol=0, atol=0)
+        if dtype == torch.bfloat16 and m == 100:
+            # the limit rejects stored values left unrounded (f32 into the
+            # product); taken on the base term, which the adapter term of
+            # these unscaled factors would swamp
+            unrounded = (x.float() @ tbm.qtile_decode(q).float()).to(dtype)
+            assert not _close(unrounded, ref.qsalr_spmm_ref(x, q, a0, b0), dtype)
+
+
+def _quant_pools(kv, rng, cuda, dtype, paged, b=3, h=9, kh=3, d=64, ps=8, max_pages=4):
+    quant = attn.q8 if kv == "int8" else attn.qnf4
+    lead = (b * max_pages + 1, ps) if paged else (b, max_pages * ps)
+    k, ks = quant(torch.from_numpy(rng.standard_normal(lead + (kh, d))).to(cuda, dtype))
+    v, vs = quant(torch.from_numpy(rng.standard_normal(lead + (kh, d))).to(cuda, dtype))
+    pos = torch.tensor([max_pages * ps - 1, 6, 0][:b], dtype=torch.int32, device=cuda)
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, d))).to(cuda, dtype)
+    if not paged:
+        return (q, k, v, ks, vs, pos), None
+    table = (rng.permutation(b * max_pages) + 1).reshape(b, max_pages).astype(np.int32)
+    dead = [0]
+    for i in range(b):
+        dead += table[i, int(pos[i]) // ps + 1:].tolist()
+        table[i, int(pos[i]) // ps + 1:] = 0 if i % 2 else table[i, int(pos[i]) // ps + 1:]
+    return (q, k, v, ks, vs, torch.from_numpy(table).to(cuda), pos), dead
+
+
+_QUANT_ATTENTION = {("int8", False): (ops.ring_quant_gqa_attention,
+                                      ref.ring_quant_gqa_attention_ref),
+                    ("nf4", False): (ops.ring_nf4_gqa_attention, ref.ring_nf4_gqa_attention_ref),
+                    ("int8", True): (ops.paged_quant_gqa_attention,
+                                     ref.paged_quant_gqa_attention_ref),
+                    ("nf4", True): (ops.paged_nf4_gqa_attention,
+                                    ref.paged_nf4_gqa_attention_ref)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+@pytest.mark.parametrize("kv", ["int8", "nf4"])
+def test_quant_attention_kernels_match_plain_and_skip_dead_data(cuda, kv, paged, dtype):
+    rng = np.random.default_rng(3)
+    args, dead = _quant_pools(kv, rng, cuda, dtype, paged)
+    kern, plain = _QUANT_ATTENTION[kv, paged]
+    y = kern(*args)
+    assert _close(y, plain(*args), dtype)
+    q, k, v, ks, vs, *rest = args
+    pos = rest[-1]
+    if paged:           # NaN scales and junk codes in the dead pages
+        for t in (ks, vs):
+            t[dead] = float("nan")
+        k[dead] = 3
+    else:               # NaN scales and junk codes past each row's pos
+        for i, p in enumerate(pos.tolist()):
+            ks[i, p + 1:] = float("nan")
+            vs[i, p + 1:] = float("nan")
+            v[i, p + 1:] = 5
+    torch.testing.assert_close(kern(*args), y, rtol=0, atol=0)
+    # the ring and paged kernels share their per-position code: the same
+    # rows read through a page table give the same bits
+    if not paged:
+        b, w = k.shape[:2]
+        table = torch.arange(b * w // 8, dtype=torch.int32, device=cuda).reshape(b, w // 8)
+        pools = [t.reshape(b * w // 8, 8, *t.shape[2:]) for t in (k, v, ks, vs)]
+        other = _QUANT_ATTENTION[kv, True][0](q, *pools, table, pos)
+        torch.testing.assert_close(other, y, rtol=0, atol=0)
 
 
 def test_wrappers_launch_and_count(cuda):

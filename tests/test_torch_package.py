@@ -17,6 +17,10 @@ from repro_torch.core import execplan
 from repro_torch.core.quant import ERROR_BUDGETS as T_BUDGETS
 
 ROOT = Path(__file__).resolve().parents[1]
+# the kernel wrappers of the port, one per CUDA kernel
+_WRAPPERS = ("salr_matmul", "bitmap_matmul", "paged_gqa_attention", "qsalr_matmul",
+             "ring_quant_gqa_attention", "paged_quant_gqa_attention",
+             "ring_nf4_gqa_attention", "paged_nf4_gqa_attention")
 
 
 def _fields(obj):
@@ -55,6 +59,8 @@ def test_port_imports_neither_jax_nor_reference():
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
         f"for m in {mods!r}: importlib.import_module(m.removesuffix('.__init__'))",
         "import chip_smoke",
+        "from repro_torch.kernels import ops",
+        f"assert all(callable(getattr(ops, n)) for n in {_WRAPPERS!r})",
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))",
         "print(len(sys.modules)); assert not bad, bad",
@@ -87,11 +93,27 @@ def test_chip_smoke_refuses_without_cuda():
 
 
 def test_unported_routes_raise():
+    """The N:M method and the NF4 twin of a dense/mask base (QDenseWeight,
+    ops.nf4_matmul) are not ported yet and say so; the quantized plans
+    (int8/NF4 KV, the bitmap NF4 twin) resolve."""
+    from repro_torch.core import salr
     cfg = tconfigs.get("smollm_135m", smoke=True)
+    gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        execplan.resolve_plan(cfg.with_(kv_cache="int8"))
+        salr.compress_linear(gen, torch.randn(32, 32), salr.SALRConfig(method="nm"))
+    layer = salr.compress_linear(gen, torch.randn(32, 32), salr.SALRConfig(lora_rank=2,
+                                                                           res_rank=2))
+    dense = dataclasses.replace(layer, base=salr.materialize_base(layer.base))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        execplan.PhaseRoute("kernel", repr="nf4")
+        salr.attach_qbase(dense)
+    quant = cfg.with_(kv_cache="int8", decode_kv_cache="nf4",
+                      salr=dataclasses.replace(cfg.salr, decode_repr="bitmap_nf4"))
+    plan = execplan.resolve_plan(quant)
+    assert (plan.kv_dtype("prefill"), plan.kv_dtype("decode")) == ("int8", "nf4")
+    assert (plan.base_repr("prefill"), plan.base_repr("decode")) == ("native", "bitmap_nf4")
+    assert execplan.PhaseRoute("kernel", repr="nf4").repr == "nf4"
+    with pytest.raises(ValueError, match="unknown KV dtype"):
+        execplan.PhaseRoute("kernel", kv_dtype="fp8")
     plan = execplan.resolve_plan(cfg)
     assert (plan.linear_backend("prefill"), plan.kv_layout("decode")) == ("kernel", "paged")
     assert plan.linear_backend("train") == "reference"
