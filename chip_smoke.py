@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
 Phases (any failure exits non-zero before the result line):
 
-1. Card and build: the card's name and power limit, then the four CUDA
-   sources of ``src/repro_torch/csrc`` (eight kernels) built with nvcc,
+1. Card and build: the card's name and power limit, then the seven CUDA
+   sources of ``src/repro_torch/csrc`` (eleven kernels) built with nvcc,
    one process per source, in parallel.
 2. Kernel vs plain version, in bf16 and in f32 with TF32 off, held to
    the plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32
@@ -27,9 +27,14 @@ Phases (any failure exits non-zero before the result line):
    and NF4) at 4 and 8 slots with 300 / 532 live positions: with NaN or
    junk in the null page and a freed page (data and scales), or past
    each ring row's position, the output must be finite and equal to the
-   clean one.  Each is timed (profiler device time, L2 flushed before
-   every launch) beside the plain version and one library call as a
-   yardstick.
+   clean one.  ``nm_spmm``, ``fused_lora`` and ``nf4_spmm`` at the wo
+   and down shapes (K = 576 / 1536, N = 576, R = 128) at M = 4, 8 and
+   1024, and ``nf4_spmm`` at the smoke width's padded shape (96 columns
+   -> 128); the bf16 limit must reject one planted fault each: values
+   read at the inclusive popcount, u left unrounded, the dequantized
+   weight left unrounded.  Each is timed (profiler device time, L2
+   flushed before every launch) beside the plain version and one library
+   call as a yardstick.
 3. Main path: smollm_135m at full width, compressed once on the GPU from
    seeded dense weights with the NF4 twin (``dual_repr``); 8 requests
    (prompt 128 sharing a 64-token prefix, 32 new tokens) served by the
@@ -47,20 +52,31 @@ Phases (any failure exits non-zero before the result line):
    kernel route must lie within ``QROUTE_TOL`` of the reference route's
    (the dequantized twin, the plain quantized attention), and planted
    wiring faults beyond it (two layers' twins swapped; under int8 KV
-   also ``down`` served from its native base).
-4. Launch counts, set to 0 before each of the three runs and read after
+   also ``down`` served from its native base).  Then the model
+   compressed anew under two more SALR methods, served the same way:
+   (A) ``method="nm"`` (2:4), whose prefill logits of the kernel route
+   must lie within ``ROUTE_TOL`` of the reference route and wo/down's
+   adapter term dropped beyond it; (B) ``method="mask"`` with
+   ``decode_repr="nf4"``, whose replayed decode logits must lie within
+   ``TWIN_ROUTE_TOL`` of the reference route and ``down`` served from
+   its native base beyond it.
+4. Launch counts, set to 0 before each of the five runs and read after
    it: the native run 210 ``salr_spmm`` per forward (7 projections x 30
    layers); a quantized run 210 ``qsalr_spmm`` and 30 quantized
    attention launches per decode step and ``salr_spmm`` at prefill
-   only; every kernel launched at least once.
+   only; (A) 150 ``salr_spmm``, 60 ``nm_spmm`` and 60 ``fused_lora``
+   per forward; (B) 60 ``nf4_spmm`` and 60 ``fused_lora`` per decode
+   step and no linear kernel at prefill; every kernel launched at least
+   once.
 
 The last lines are the card (nvidia-smi), a JSON object describing each
-kernel (its launches summed over the three main-path runs, its times at
+kernel (its launches summed over the five main-path runs, its times at
 one decode-size call), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -80,8 +96,9 @@ TOL = {"bfloat16": 5e-4, "float32": 1e-5}
 # kernel route vs reference route, prefill logits at full width (bf16
 # rounding at other places through 30 layers): sound readings 1.9e-2 to
 # 2.4e-2 over seeds 0-2, a projection shape's adapter term dropped reads
-# 0.23 to 0.71.  A guard against gross divergence only: subtle faults
-# (an unrounded u) are phase 2's to catch
+# 0.23 to 0.71; under method="nm" sound 2.0e-2 to 2.2e-2, wo/down's
+# adapter term dropped 0.70 to 0.78.  A guard against gross divergence
+# only: subtle faults (an unrounded u) are phase 2's to catch
 ROUTE_TOL = 7e-2
 # the same under a mixed-precision plan, per decode KV precision, on the
 # decode logits of 16 replayed greedy steps of 4 requests: kernel route
@@ -95,8 +112,16 @@ ROUTE_TOL = 7e-2
 # readings there); wk/wv from their native base 3.8e-2 to 8.8e-2
 # (reported only)
 QROUTE_TOL = {"int8": 5e-2, "nf4": 1e-1}
+# the same check for the masked-dense plan whose decode serves wo/down
+# from their NF4 twins (nf4_spmm + fused_lora; native KV, so both routes
+# read the same cache values).  Sound readings over seeds 0-2: 1.46e-2 to
+# 1.53e-2; down served from its native base 8.4e-2 to 9.6e-2 (checked)
+TWIN_ROUTE_TOL = 4e-2
 QROUTE_STEPS = 16
 R_CAT = 128                                      # LoRA 64 + residual 64
+# the main path's requests: prompts sharing a 64-token prefix, new tokens
+# per request, the continuous engine's slots
+N_REQ, PROMPT_LEN, GEN_LEN, N_SLOTS = 8, 128, 32, 4
 
 
 def fail(msg: str) -> None:
@@ -174,10 +199,13 @@ def device_us(torch, prof, by_name: dict = None, counts: dict = None) -> float:
 def _row_line(row: dict) -> str:
     shape = " ".join(f"{k}={row[k]}" for k in ("layer", "M", "K", "N_pad", "tile", "cap_t",
                                                 "B", "live_positions") if k in row)
-    fault = "".join(f" (unrounded {what}: {row[key]:.2e})"
-                    for what, key in (("u", "unrounded_u_rel_l2"),
-                                      ("values", "unrounded_values_rel_l2")) if key in row)
-    times = " ".join(f"{k} {row[k]:.4f}" for k in ("ms", "plain_ms", "library_ms",
+    fault = "".join(f" ({what}: {row[key]:.2e})"
+                    for what, key in (("unrounded u", "unrounded_u_rel_l2"),
+                                      ("unrounded values", "unrounded_values_rel_l2"),
+                                      ("unrounded weight", "unrounded_weight_rel_l2"),
+                                      ("inclusive popcount", "inclusive_popcount_rel_l2"))
+                    if key in row)
+    times = " ".join(f"{k} {row[k]:.5f}" for k in ("ms", "plain_ms", "library_ms",
                                                      "bound_ms") if k in row)
     return (f"phase 2: {row['kernel']} {row['dtype']} {shape}: rel-L2 {row['rel_l2']:.2e}"
             f"{fault} max-abs {row['max_abs_err']:.2e} {times}")
@@ -420,6 +448,117 @@ def qsalr_checks(torch, timer, gen, rows: list) -> dict:
     return summary
 
 
+def _nm_decode_inclusive(torch, nmw):
+    """A planted nm_spmm fault: each set bit's value read at the inclusive
+    popcount of its group byte (one slot late), clamped to the row."""
+    rows, n, m = nmw.rows, nmw.n, nmw.m
+    shifts = torch.arange(m, dtype=torch.uint8, device=nmw.group_bits.device)
+    bits = ((nmw.group_bits[:, :, None] >> shifts) & 1).bool()
+    slot = torch.cumsum(bits.long(), dim=-1)
+    groups = torch.arange(bits.shape[1], device=bits.device)[None, :, None]
+    idx = (groups * n + slot).clamp(max=nmw.values.shape[1] - 1).reshape(rows, -1)
+    vals = torch.gather(nmw.values, 1, idx).reshape(bits.shape)
+    return torch.where(bits, vals, 0).reshape(rows, nmw.cols)
+
+
+def method_checks(torch, timer, gen, rows: list) -> dict:
+    """nm_spmm, fused_lora and nf4_spmm vs their plain versions at the
+    shapes the N:M and masked-dense paths give them: wo (K = 576) and
+    down (K = 1536), N = 576, R = 128, at the decode batches M = 4
+    (engine slots) and 8 (greedy_generate) and at prefill size M = 1024
+    (which the main path gives nm_spmm and fused_lora; nf4_spmm only
+    decodes, and is held over many row blocks there too), and nf4_spmm
+    at the smoke width's padded shape (96 columns -> 128).  The
+    bf16 limit must reject one planted fault per kernel: nm_spmm's values
+    read at the inclusive popcount, fused_lora's u left unrounded,
+    nf4_spmm's dequantized weight left unrounded (f32 into the
+    product)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core.quant import nf4_dequant_2d
+    from repro_torch.kernels import ops, ref
+
+    shapes = {"wo": (576, 576), "down": (1536, 576), "wo (smoke width, padded)": (96, 96)}
+    names = ("nm_spmm", "fused_lora", "nf4_spmm")
+    summary = {name: {"max_abs_err": 0.0} for name in names}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for lname, (k, n) in shapes.items():
+            w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+            nmw, _ = bm.nm_encode(w.to(dt))
+            w_nm = bm.nm_decode(nmw)                      # yardstick weights, decoded ahead
+            a = (torch.randn((k, R_CAT), generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+            b = (torch.randn((R_CAT, n), generator=gen, device="cuda") / math.sqrt(R_CAT)).to(dt)
+            codes, scales = ops.nf4_encode_2d(torch.nn.functional.pad(w, (0, (-n) % 64)))
+            w_nf4 = nf4_dequant_2d(codes, scales)
+            w_nf4_dt = w_nf4.to(dt)
+            n_pad = w_nf4.shape[1]
+            nnz = int(w_nm.ne(0).sum())
+            for m in (4, 8, 1024):
+                x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
+                es = x.element_size()
+                cases = {   # kernel, plain, library call, planted fault, bytes, flops
+                    "nm_spmm": (
+                        lambda: ops.nm_matmul(x, nmw), lambda: ref.nm_spmm_ref(x, nmw),
+                        lambda: x @ w_nm,
+                        ("inclusive_popcount_rel_l2",
+                         lambda: (x.float() @ _nm_decode_inclusive(torch, nmw).float()).to(dt)),
+                        # x, the group bytes, the n/m stored values, y
+                        m * k * es + nmw.group_bits.numel() + nmw.values.numel() * es
+                        + m * n * es, 2 * m * nnz),
+                    "fused_lora": (
+                        lambda: ops.lora_matmul(x, a, b), lambda: ref.fused_lora_ref(x, a, b),
+                        lambda: torch.linalg.multi_dot([x, a, b]),
+                        ("unrounded_u_rel_l2",
+                         lambda: ((x.float() @ a.float()) @ b.float()).to(dt)),
+                        (m * k + k * R_CAT + R_CAT * n + m * n) * es,
+                        2 * m * R_CAT * (k + n)),
+                    "nf4_spmm": (
+                        lambda: ops.nf4_matmul(x, codes, scales),
+                        lambda: ref.nf4_spmm_ref(x, codes, scales),
+                        lambda: x @ w_nf4_dt,
+                        ("unrounded_weight_rel_l2", lambda: (x.float() @ w_nf4).to(dt)),
+                        # x, the code bytes, one f32 scale per 64 columns, y
+                        m * k * es + codes.numel() + scales.numel() * 4 + m * n_pad * es,
+                        2 * m * k * n_pad),
+                }
+                for name, (kern, plain, lib, (fault_key, fault_fn), nbytes, flops) in \
+                        cases.items():
+                    if lname.startswith("wo (smoke") and name != "nf4_spmm":
+                        continue
+                    y, y_ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    err = rel_l2(torch, y, y_ref)
+                    abs_err = (y.float() - y_ref.float()).abs().max().item()
+                    if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
+                        fail(f"{name} {dtype_name} {lname} M={m}: rel-L2 {err:.3e} "
+                             f"> {TOL[dtype_name]:.0e}")
+                    s = summary[name]
+                    s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+                    bound, by = _bound(nbytes, flops, dtype_name)
+                    row = {"kernel": name, "dtype": dtype_name, "layer": lname, "M": m, "K": k,
+                           "N_pad": n_pad if name == "nf4_spmm" else n, "rel_l2": err,
+                           "max_abs_err": abs_err, "bytes": nbytes, "flops": flops,
+                           "bound_ms": bound, "bound_by": by}
+                    if dtype_name == "bfloat16":
+                        fault = rel_l2(torch, fault_fn(), y_ref)
+                        row[fault_key] = fault
+                        if not fault > TOL[dtype_name]:
+                            fail(f"bf16 limit {TOL[dtype_name]:.0e} does not reject the "
+                                 f"planted {name} fault at {lname} M={m} (rel-L2 {fault:.3e})")
+                        row.update(ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                                   library_ms=timer.ms(lib))
+                        # the yardstick shape in the kernels line: one engine
+                        # decode step of the deepest projection
+                        if lname == "down" and m == 4:
+                            s.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                             "bound_ms", "bound_by")})
+                            s["shape"] = (f"bf16 M=4 K={k} N={n}"
+                                          + (f" R={R_CAT}" if name == "fused_lora" else ""))
+                    rows.append(row)
+                    print(_row_line(row))
+    return summary
+
+
 QUANT_ATTENTION = ("ring_quant_gqa_attention", "paged_quant_gqa_attention",
                    "ring_nf4_gqa_attention", "paged_nf4_gqa_attention")
 
@@ -555,8 +694,8 @@ def main_path(torch, dev, seed: int, rows: list) -> list:
     rank0 = salr.compress_linear(gen, (torch.randn((d, d), generator=gen)
                                        / math.sqrt(d)).to(dev),
                                  salr.SALRConfig(lora_rank=0, res_rank=0, dtype=cfg.dtype))
-    n_req, prompt_len, gen_len, n_slots = 8, 128, 32, 4
-    prompts = serve.request_prompts(cfg, n_req, prompt_len, seed, shared_prefix=64)
+    n_req, gen_len, n_slots = N_REQ, GEN_LEN, N_SLOTS
+    prompts = serve.request_prompts(cfg, n_req, PROMPT_LEN, seed, shared_prefix=64)
     plan = execplan.resolve_plan(cfg)
     x_rank0 = params["embed"]["table"][torch.from_numpy(prompts).to(dev).long()]
 
@@ -594,12 +733,7 @@ def main_path(torch, dev, seed: int, rows: list) -> list:
                  "compress_s": init_s, "launches": counts})
 
     # outputs: shape, vocabulary, finiteness, engine vs greedy
-    if greedy.shape != (n_req, gen_len) or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all():
-        fail(f"batch engine tokens: shape {greedy.shape} or out of vocabulary")
-    for i in range(n_req):
-        toks = results[i].tokens
-        if len(toks) != gen_len or not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"engine request {i}: {len(toks)} tokens or out of vocabulary")
+    check_tokens("native", cfg, greedy, results, n_req, gen_len)
     if not torch.isfinite(y0).all():
         fail("rank-0 layer output not finite")
     with torch.inference_mode():
@@ -622,14 +756,7 @@ def main_path(torch, dev, seed: int, rows: list) -> list:
         fail(f"kernel route strays from the reference formulation: rel-L2 {ref_err:.3e}")
     if not min(faults.values()) > ROUTE_TOL:
         fail(f"route limit {ROUTE_TOL:.0e} does not reject every planted fault")
-    for rid, step, gap, limit, tie in report:
-        print(f"phase 3: request {rid} diverges from greedy_generate at step {step}: "
-              f"top-2 gap {gap:.5g}, near-tie limit {limit:.5g} -> "
-              f"{'near-tie, accepted' if tie else 'NOT a near-tie'}")
-    if not all(r[4] for r in report):
-        fail("engine tokens diverge from greedy_generate away from a near-tie")
-    print(f"phase 3: parity: {n_req - len(report)}/{n_req} requests equal greedy_generate "
-          f"exactly, {len(report)} diverge at near-ties")
+    check_parity("native", report, n_req)
     rows[-1].update(kernel_vs_reference_rel_l2=ref_err, planted_faults_rel_l2=faults,
                     divergences=report)
     if on_gpu:
@@ -639,6 +766,192 @@ def main_path(torch, dev, seed: int, rows: list) -> list:
         paths.append(quant_path(torch, dev, cfg, params, prompts, gen_len, n_slots, kv,
                                 greedy, results, rows))
     return paths
+
+
+def method_paths(torch, dev, seed: int, rows: list) -> list:
+    """The same requests served by the model compressed anew under
+    method="nm" and under method="mask" with its NF4 twin (run after the
+    bitmap model is freed, so each run's peak memory is its own)."""
+    from repro_torch.launch import serve
+
+    prompts = serve.request_prompts(method_cfg(), N_REQ, PROMPT_LEN, seed, shared_prefix=64)
+    return [nm_path(torch, dev, seed, prompts, rows),
+            mask_nf4_path(torch, dev, seed, prompts, rows)]
+
+
+def check_tokens(label: str, cfg, greedy, results, n_req: int, gen_len: int) -> None:
+    """Every request returned ``gen_len`` in-vocabulary tokens from both
+    engines."""
+    if greedy.shape != (n_req, gen_len) or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all():
+        fail(f"{label}: batch engine tokens: shape {greedy.shape} or out of vocabulary")
+    for i in range(n_req):
+        toks = results[i].tokens
+        if len(toks) != gen_len or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{label}: engine request {i}: {len(toks)} tokens or out of vocabulary")
+
+
+def check_parity(label: str, report: list, n_req: int) -> None:
+    """Engine tokens equal greedy tokens up to near-ties
+    (``serve.parity_report``)."""
+    for rid, step, gap, limit, tie in report:
+        print(f"phase 3: {label}: request {rid} diverges from greedy_generate at step "
+              f"{step}: top-2 gap {gap:.5g}, near-tie limit {limit:.5g} -> "
+              f"{'near-tie, accepted' if tie else 'NOT a near-tie'}")
+    if not all(r[4] for r in report):
+        fail(f"{label}: engine tokens diverge from greedy_generate away from a near-tie")
+    print(f"phase 3: {label}: parity: {n_req - len(report)}/{n_req} requests equal "
+          f"greedy_generate exactly, {len(report)} diverge at near-ties")
+
+
+def serve_both(torch, cfg, params, prompts, gen_len: int, n_slots: int, plan) -> tuple:
+    """Both engines over ``prompts`` under ``plan``, the launch counts set
+    to 0 just before and read just after.  Returns (greedy tokens, batch
+    seconds, engine, results, metrics, launch counts, peak device bytes)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.inference_mode():
+        greedy, batch_s = serve.run_batch(cfg, params, prompts, gen_len, len(prompts), plan)
+        eng, results, metrics = serve.run_continuous(cfg, params, prompts, gen_len,
+                                                     n_slots, plan=plan)
+        torch.cuda.synchronize()
+    return (greedy, batch_s, eng, results, metrics, dict(ops.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def method_cfg(**salr_fields):
+    """smollm_135m at full width under other SALR config fields."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get("smollm_135m")
+    return cfg.with_(salr=dataclasses.replace(cfg.salr, **salr_fields))
+
+
+def _engine_line(label: str, greedy, batch_s: float, metrics: dict, peak: int) -> str:
+    return (f"phase 3: {label}: batch engine {greedy.size} tokens in {batch_s:.3f}s "
+            f"({greedy.size / batch_s:.1f} tok/s); continuous engine {metrics['total_tokens']} "
+            f"tokens in {metrics['wall_s']:.3f}s ({metrics['tok_s']:.1f} tok/s), ttft mean "
+            f"{metrics['ttft_mean_s']:.4f}s p50 {metrics['ttft_p50_s']:.4f}s, prefix hit rate "
+            f"{metrics['prefix_hit_rate']:.4f}; peak device memory {peak} bytes")
+
+
+def nm_path(torch, dev, seed: int, prompts, rows: list) -> tuple:
+    """(A) method="nm" (2:4), native plan: the model compressed anew from
+    the same seed; wq/wk/wv/gate/up take their N:M masks along d_in and
+    run salr_spmm on tiled bitmaps, wo/down keep N:M bases and run
+    nm_spmm + fused_lora.  Checks: tokens, engine vs greedy up to
+    near-ties, prefill logits of the kernel route within ``ROUTE_TOL`` of
+    the reference route and wo/down's adapter term dropped beyond it.
+    Returns (path, launch counts, launches expected, None)."""
+    from repro_torch.core import execplan
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = method_cfg(method="nm")
+    label = "nm (2:4)"
+    params, init_s = serve.build_params(cfg, seed, dev)
+    plan = execplan.resolve_plan(cfg)
+    n_req, n_layers = len(prompts), cfg.n_layers
+    greedy, batch_s, eng, results, metrics, counts, peak = serve_both(
+        torch, cfg, params, prompts, GEN_LEN, N_SLOTS, plan)
+    forwards = GEN_LEN + metrics["n_prefills"] + metrics["n_decode_ticks"]
+    # per layer per forward: 5 salr_spmm (wq/wk/wv/gate/up), and wo/down's
+    # nm_spmm + fused_lora
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"salr_spmm": 5 * n_layers * forwards, "nm_spmm": 2 * n_layers * forwards,
+                     "fused_lora": 2 * n_layers * forwards,
+                     "paged_gqa_attention": n_layers * metrics["n_decode_ticks"]})
+    print(f"phase 3: {label}: compressed in {init_s:.2f}s; {serve.route_line(cfg, plan)}")
+    print(_engine_line(label, greedy, batch_s, metrics, peak))
+    check_tokens(label, cfg, greedy, results, n_req, GEN_LEN)
+    with torch.inference_mode():
+        pt = torch.from_numpy(prompts[:2]).to(dev)
+        lk, _ = M.prefill(params, cfg, pt, plan=plan)
+        lr, _ = M.prefill(params, cfg, pt, plan=execplan.resolve_plan(cfg, backend="reference"))
+        report = serve.parity_report(cfg, params, prompts, greedy, results, plan)
+        fault = rel_l2(torch, M.prefill(drop_adapters(torch, params, ("wo", "down")), cfg, pt,
+                                        plan=plan)[0], lr)
+    if not torch.isfinite(lk).all() or not torch.isfinite(lr).all():
+        fail(f"{label}: prefill logits not finite")
+    err = rel_l2(torch, lk, lr)
+    print(f"phase 3: {label}: prefill logits, kernel route vs reference route: rel-L2 "
+          f"{err:.4e} (limit {ROUTE_TOL:.0e}); planted fault: wo/down adapter term dropped "
+          f"{fault:.4e}")
+    if not err <= ROUTE_TOL:
+        fail(f"{label}: kernel route strays from the reference formulation: rel-L2 {err:.3e}")
+    if not fault > ROUTE_TOL:
+        fail(f"{label}: route limit {ROUTE_TOL:.0e} does not reject the planted fault")
+    check_parity(label, report, n_req)
+    rows.append({"main_path": label, "batch_tokens": int(greedy.size), "batch_s": batch_s,
+                 "engine": {k: v for k, v in metrics.items() if k != "plan"},
+                 "peak_bytes": peak, "compress_s": init_s, "launches": counts,
+                 "divergences": report, "kernel_vs_reference_rel_l2": err,
+                 "planted_faults_rel_l2": {"wo/down adapter term dropped": fault},
+                 "decode_tick": tick_profile(torch, eng, prompts)})
+    return label, counts, expected, None
+
+
+def mask_nf4_path(torch, dev, seed: int, prompts, rows: list) -> tuple:
+    """(B) method="mask", decode_repr="nf4", decode KV native: the model
+    compressed anew from the same seed with masked dense bases; prefill
+    runs every linear as a dense GEMM on them (no kernel), decode serves
+    wo/down from their NF4 twins (QDenseWeight) through nf4_spmm +
+    fused_lora, and wq/wk/wv/gate/up (no twin) as dense GEMMs.  Checks:
+    tokens, engine vs greedy up to near-ties, greedy's decode logits
+    replayed on the kernel route within ``TWIN_ROUTE_TOL`` of the
+    reference route (the dequantized twin) and down served from its
+    native base beyond it.  Returns (path, launch counts, launches
+    expected, launches per decode step)."""
+    from repro_torch.core import execplan
+    from repro_torch.launch import serve
+
+    cfg = method_cfg(method="mask", decode_repr="nf4")
+    label = "mask + NF4 twin"
+    params, init_s = serve.build_params(cfg, seed, dev)
+    twin = sum(t.numel() * t.element_size() for lp in params["layers"]
+               for part in ("mixer", "mlp") for lin in lp[part].values()
+               if getattr(lin, "qbase", None) is not None
+               for t in (lin.qbase.codes, lin.qbase.scales))
+    plan = execplan.resolve_plan(cfg)
+    n_req, n_layers = len(prompts), cfg.n_layers
+    greedy, batch_s, eng, results, metrics, counts, peak = serve_both(
+        torch, cfg, params, prompts, GEN_LEN, N_SLOTS, plan)
+    steps, ticks = GEN_LEN - 1, metrics["n_decode_ticks"]
+    # prefill runs no linear kernel; every decode step runs wo/down's
+    # nf4_spmm + fused_lora in each layer
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"nf4_spmm": 2 * n_layers * (steps + ticks),
+                     "fused_lora": 2 * n_layers * (steps + ticks),
+                     "paged_gqa_attention": n_layers * ticks})
+    print(f"phase 3: {label}: compressed in {init_s:.2f}s, NF4 twin bytes {twin}; "
+          f"{serve.route_line(cfg, plan)}")
+    print(_engine_line(label, greedy, batch_s, metrics, peak))
+    check_tokens(label, cfg, greedy, results, n_req, GEN_LEN)
+    if metrics["precision"]["decode"]["repr"] != "nf4":
+        fail(f"{label}: the engine ran decode at {metrics['precision']['decode']}")
+    with torch.inference_mode():
+        report = serve.parity_report(cfg, params, prompts, greedy, results, plan)
+    check_parity(label, report, n_req)
+    faults = {"down from the native base": (edit_linears(
+        params, ("down",), range(cfg.n_layers), lambda lin, _: {"qbase": None}), True)}
+    route_err, fault_errs = decode_route_check(torch, cfg, params, prompts, greedy, plan, label,
+                                               TWIN_ROUTE_TOL, faults)
+    rows.append({"main_path": label, "batch_tokens": int(greedy.size), "batch_s": batch_s,
+                 "engine": {k: v for k, v in metrics.items() if k != "plan"},
+                 "peak_bytes": peak, "compress_s": init_s, "nf4_twin_bytes": twin,
+                 "launches": counts, "divergences": report,
+                 "decode_kernel_vs_reference_rel_l2": route_err,
+                 "decode_planted_faults_rel_l2": fault_errs,
+                 "decode_tick": tick_profile(torch, eng, prompts)})
+    per_step = {"nf4_spmm": counts["nf4_spmm"] / (steps + ticks),
+                "fused_lora": counts["fused_lora"] / (steps + ticks),
+                "paged_gqa_attention per engine tick": counts["paged_gqa_attention"] / ticks,
+                "salr_spmm + qsalr_spmm": counts["salr_spmm"] + counts["qsalr_spmm"]}
+    return label, counts, expected, per_step
 
 
 def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv: str,
@@ -654,7 +967,6 @@ def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv:
     import dataclasses
 
     from repro_torch.core import execplan
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     qcfg = cfg.with_(decode_kv_cache=kv,
@@ -662,16 +974,8 @@ def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv:
     plan = execplan.resolve_plan(qcfg)
     n_req, n_layers = len(prompts), cfg.n_layers
     label = f"bitmap_nf4 + {kv} KV"
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    with torch.inference_mode():
-        greedy, batch_s = serve.run_batch(qcfg, params, prompts, gen_len, n_req, plan)
-        eng, results, metrics = serve.run_continuous(qcfg, params, prompts, gen_len,
-                                                     n_slots, plan=plan)
-        torch.cuda.synchronize()
-    counts = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    greedy, batch_s, eng, results, metrics, counts, peak = serve_both(
+        torch, qcfg, params, prompts, gen_len, n_slots, plan)
     steps, ticks = gen_len - 1, metrics["n_decode_ticks"]
     ring, paged = (("ring_quant_gqa_attention", "paged_quant_gqa_attention") if kv == "int8"
                    else ("ring_nf4_gqa_attention", "paged_nf4_gqa_attention"))
@@ -683,17 +987,8 @@ def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv:
                      "qsalr_spmm": 7 * n_layers * (steps + ticks),
                      ring: n_layers * steps, paged: n_layers * ticks})
     print(f"phase 3: {label}: {serve.route_line(qcfg, plan)}")
-    print(f"phase 3: {label}: batch engine {greedy.size} tokens in {batch_s:.3f}s "
-          f"({greedy.size / batch_s:.1f} tok/s); continuous engine {metrics['total_tokens']} "
-          f"tokens in {metrics['wall_s']:.3f}s ({metrics['tok_s']:.1f} tok/s), ttft mean "
-          f"{metrics['ttft_mean_s']:.4f}s p50 {metrics['ttft_p50_s']:.4f}s, prefix hit rate "
-          f"{metrics['prefix_hit_rate']:.4f}; peak device memory {peak} bytes")
-    if greedy.shape != (n_req, gen_len) or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all():
-        fail(f"{label}: batch engine tokens: shape {greedy.shape} or out of vocabulary")
-    for i in range(n_req):
-        toks = results[i].tokens
-        if len(toks) != gen_len or not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"{label}: engine request {i}: {len(toks)} tokens or out of vocabulary")
+    print(_engine_line(label, greedy, batch_s, metrics, peak))
+    check_tokens(label, cfg, greedy, results, n_req, gen_len)
     if eng.sharable or metrics["prefix_hit_rate"] != 0.0:
         fail(f"{label}: prefix sharing must be off with quantized decode KV")
     if metrics["precision"]["decode"] != {"repr": "bitmap_nf4", "kv_dtype": kv}:
@@ -712,15 +1007,18 @@ def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv:
           f"({agree_batch / total:.4f}); first tokens all equal")
     with torch.inference_mode():
         report = serve.parity_report(qcfg, params, prompts, greedy, results, plan)
-    for rid, step, gap, limit, tie in report:
-        print(f"phase 3: {label}: request {rid} diverges from greedy_generate at step "
-              f"{step}: top-2 gap {gap:.5g}, near-tie limit {limit:.5g} -> "
-              f"{'near-tie, accepted' if tie else 'NOT a near-tie'}")
-    if not all(r[4] for r in report):
-        fail(f"{label}: engine tokens diverge from greedy_generate away from a near-tie")
-    print(f"phase 3: {label}: parity: {n_req - len(report)}/{n_req} requests equal "
-          f"greedy_generate exactly, {len(report)} diverge at near-ties")
-    route_err, faults = quant_route_check(torch, qcfg, params, prompts, greedy, plan, label)
+    check_parity(label, report, n_req)
+    n = len(params["layers"])
+    faults = {   # (params with the fault, whether the limit must reject it)
+        "down from the native base": (edit_linears(
+            params, ("down",), range(n), lambda lin, _: {"qbase": None}), kv == "int8"),
+        "layers 0 and 1 twins swapped": (edit_linears(
+            params, PROJECTIONS, (0, 1), lambda lin, other: {"qbase": other.qbase}), True),
+        "wk/wv from the native base": (edit_linears(
+            params, ("wk", "wv"), range(n), lambda lin, _: {"qbase": None}), False),
+    }
+    route_err, faults = decode_route_check(torch, qcfg, params, prompts, greedy, plan, label,
+                                           QROUTE_TOL[kv], faults)
     rows.append({"main_path": label, "batch_tokens": int(greedy.size), "batch_s": batch_s,
                  "engine": {k: v for k, v in metrics.items() if k != "plan"},
                  "peak_bytes": peak, "launches": counts, "divergences": report,
@@ -739,41 +1037,30 @@ def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv:
     return label, counts, expected, per_step
 
 
-def quant_route_check(torch, cfg, params, prompts, greedy, plan, label: str) -> tuple:
+def decode_route_check(torch, cfg, params, prompts, greedy, plan, label: str, tol: float,
+                       faults: dict) -> tuple:
     """Decode logits of a mixed-precision plan, kernel route vs reference
     route: greedy's first ``QROUTE_STEPS`` decode steps of 4 requests
-    replayed on each route (``replay_logits``), rel-L2 within the
-    ``QROUTE_TOL`` of the plan's decode KV precision.  The kernel route
-    runs qsalr_spmm and the quantized ring attention kernel, the reference
-    route the dequantized NF4 twin and the plain quantized attention, each
-    on its own KV cache.  Planted wiring faults on the kernel route must
-    read beyond the limit where marked.  Returns (rel-L2, {fault:
-    rel-L2})."""
+    replayed on each route (``replay_logits``), rel-L2 within ``tol``.
+    The kernel route runs the plan's decode kernels, the reference route
+    the dequantized twin and the plain attention, each on its own KV
+    cache.  ``faults``: {name: (params with a planted wiring fault, whether
+    the limit must reject it)}, each replayed on the kernel route.
+    Returns (rel-L2, {fault: rel-L2})."""
     from repro_torch.core import execplan
     from repro_torch.models import model as M
     from repro_torch.train.step import replay_logits
 
     dev = M.params_device(params)
-    kv = plan.kv_dtype("decode")
-    tol = QROUTE_TOL[kv]
     pt = torch.from_numpy(prompts[:4]).to(dev)
     toks = torch.from_numpy(greedy[:4, :QROUTE_STEPS + 1]).to(dev)
     ref_plan = execplan.resolve_plan(cfg, backend="reference")
-    n = len(params["layers"])
 
     def decode_logits(p, pl):                     # step 0 is the native prefill's
         return replay_logits(p, cfg, pt, toks, plan=pl)[:, 1:]
     with torch.inference_mode():
         lr = decode_logits(params, ref_plan)
         lk = decode_logits(params, plan)
-        faults = {   # (params with the fault, whether the limit must reject it)
-            "down from the native base": (edit_linears(
-                params, ("down",), range(n), lambda lin, _: {"qbase": None}), kv == "int8"),
-            "layers 0 and 1 twins swapped": (edit_linears(
-                params, PROJECTIONS, (0, 1), lambda lin, other: {"qbase": other.qbase}), True),
-            "wk/wv from the native base": (edit_linears(
-                params, ("wk", "wv"), range(n), lambda lin, _: {"qbase": None}), False),
-        }
         faults = {k: (rel_l2(torch, decode_logits(fp, plan), lr), checked)
                   for k, (fp, checked) in faults.items()}
     if not torch.isfinite(lk).all() or not torch.isfinite(lr).all():
@@ -867,6 +1154,9 @@ def tick_profile(torch, eng, prompts) -> dict:
     # template arguments marks qsalr_spmm's, so it is matched first
     families = {"qsalr_spmm": ("NF4Values",),
                 "salr_spmm": ("salr_spmm_kernel", "adapter_u_kernel"),
+                "nm_spmm": ("nm_spmm_kernel",),
+                "fused_lora": ("fused_lora_kernel",),
+                "nf4_spmm": ("nf4_spmm_kernel",),
                 "paged_gqa_attention": ("paged_gqa_kernel",),
                 "quantized attention": ("quant_gqa_kernel",)}
     split = {f: 0.0 for f in (*families, "other")}
@@ -936,9 +1226,12 @@ def main(argv=None) -> int:
         paged = paged_checks(torch, timer, gen, rows)
         qsalr = qsalr_checks(torch, timer, gen, rows)
         quant_att = quant_attention_checks(torch, timer, gen, rows)
+        methods = method_checks(torch, timer, gen, rows)
     print("phase 2: every kernel agrees with its plain version")
 
     paths = main_path(torch, torch.device("cuda"), args.seed, rows)
+    gc.collect()                  # the bitmap model goes before the next two
+    paths += method_paths(torch, torch.device("cuda"), args.seed, rows)
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     for path, counts, expected, per_step in paths:
         for name, n in counts.items():
@@ -965,7 +1258,12 @@ def main(argv=None) -> int:
                   for name, rep in (("ring_quant_gqa_attention", "ring_attention.py:77"),
                                     ("paged_quant_gqa_attention", "paged_attention.py:175"),
                                     ("ring_nf4_gqa_attention", "ring_attention.py:142"),
-                                    ("paged_nf4_gqa_attention", "paged_attention.py:259"))}}
+                                    ("paged_nf4_gqa_attention", "paged_attention.py:259"))},
+               **{name: (f"src/repro_torch/csrc/{name}.cu", f"src/repro/kernels/{rep}",
+                         methods[name])
+                  for name, rep in (("nm_spmm", "nm_spmm.py:59"),
+                                    ("fused_lora", "fused_lora.py:43"),
+                                    ("nf4_spmm", "nf4_spmm.py:49"))}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

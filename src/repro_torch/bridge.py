@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.adapters import LoRAAdapter
-from repro_torch.core.bitmap import QTiledBitmapWeight, TiledBitmapWeight
-from repro_torch.core.salr import SALRLinear
+from repro_torch.core.bitmap import NMWeight, QTiledBitmapWeight, TiledBitmapWeight
+from repro_torch.core.salr import QDenseWeight, SALRConfig, SALRLinear
 from repro_torch.device import resolve_device
 
 
@@ -33,27 +33,47 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device) -> SALRLinear:
+# projections whose flat (dense, masked or N:M) base the reference stores
+# as W^T; taken from the name, as a shape cannot tell (wq is square)
+TRANSPOSED = ("wq", "wk", "wv", "gate", "up")
+
+
+def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device,
+            transposed: bool = False) -> SALRLinear:
     def leaf(suffix):
         return to_tensor(flat[key + suffix][r], device)
 
-    words, values = leaf(".base.words"), leaf(".base.values")
-    n_tiles, wpt = words.shape[1], words.shape[2]
-    base = TiledBitmapWeight(words=words, values=values, cols=n_tiles * wpt * 32,
-                             tile=wpt * 32, cap_t=values.shape[-1])
+    if key + ".base.words" in flat:         # tiled bitmap: logical orientation
+        words, values = leaf(".base.words"), leaf(".base.values")
+        n_tiles, wpt = words.shape[1], words.shape[2]
+        base = TiledBitmapWeight(words=words, values=values, cols=n_tiles * wpt * 32,
+                                 tile=wpt * 32, cap_t=values.shape[-1])
+        transposed = False
+    elif key + ".base.group_bits" in flat:  # N:M, (2, 4) as the reference emits it
+        bits, values = leaf(".base.group_bits"), leaf(".base.values")
+        m = SALRConfig().nm[1]
+        base = NMWeight(group_bits=bits, values=values, cols=bits.shape[1] * m,
+                        n=values.shape[1] // bits.shape[1], m=m)
+    else:                                   # dense or masked-dense
+        base = leaf(".base")
     lora = LoRAAdapter(a=leaf(".lora.a"), b=leaf(".lora.b"), scale=1.0)
     res = (LoRAAdapter(a=leaf(".res.a"), b=leaf(".res.b"), scale=1.0)
            if key + ".res.a" in flat else None)
     bias = leaf(".bias") if key + ".bias" in flat else None
-    qbase = None
-    if key + ".qbase.codes" in flat:        # the NF4 twin of a dual_repr layer
+    qbase = None                            # the NF4 twin of a dual_repr layer
+    if key + ".qbase.words" in flat:
         qbase = QTiledBitmapWeight(words=leaf(".qbase.words"), codes=leaf(".qbase.codes"),
                                    scales=leaf(".qbase.scales"), cols=base.cols,
                                    tile=base.tile, cap_t=base.cap_t)
+    elif key + ".qbase.codes" in flat:
+        codes = leaf(".qbase.codes")
+        qbase = QDenseWeight(codes=codes, scales=leaf(".qbase.scales"),
+                             shape=(codes.shape[0], d_out))
     if lora.b.shape[1] != d_out:
         raise ValueError(f"{key}: adapter width {lora.b.shape[1]} != d_out {d_out}")
-    return SALRLinear(base=base, lora=lora, res=res, bias=bias, d_in=words.shape[0],
-                      d_out=d_out, backend=cfg.salr.backend, qbase=qbase)
+    return SALRLinear(base=base, lora=lora, res=res, bias=bias, d_in=lora.a.shape[0],
+                      d_out=d_out, transposed=transposed, backend=cfg.salr.backend,
+                      qbase=qbase)
 
 
 def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
@@ -61,9 +81,12 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     repeats axis of every stacked leaf is unstacked into per-layer
     entries; tiled-bitmap static fields derive from the shapes (tile =
     words-per-tile x 32, cap_t from the values, cols = n_tiles x tile),
-    d_out from the config, and adapter scales are 1.0 (alpha = rank).  A
-    layer's NF4 twin (``.qbase.words/codes/scales``) is carried when the
-    reference emitted one."""
+    d_out from the config, and adapter scales are 1.0 (alpha = rank).  An
+    N:M base (``.base.group_bits/values``) and a dense or masked base
+    (``.base``) are carried too, a flat base of a projection in
+    ``TRANSPOSED`` as the W^T it stores.  A layer's NF4 twin is carried
+    when the reference emitted one: ``.qbase.words/codes/scales`` for a
+    tiled base, ``.qbase.codes/scales`` (a QDenseWeight) for a dense one."""
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
     widths = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,
@@ -79,7 +102,7 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
 
                 def lin(sub, name, pre=pre, r=r):
                     return _linear(flat, f"{pre}['{sub}']['{name}']", r,
-                                   widths[name], cfg, dev)
+                                   widths[name], cfg, dev, name in TRANSPOSED)
 
                 layers.append({
                     "mixer": {"norm": {"scale": to_tensor(

@@ -13,6 +13,11 @@ imported encodings decode the same way:
     ``cap_t - 1``.  Cells whose population exceeds ``cap_t`` spill their
     smallest-magnitude entries, returned so callers fold them into the
     SVD residual (W = W_hat + E stays exact).
+
+The N:M (2:4) variant (``NMWeight``) keeps exactly n values in every
+group of m consecutive columns: ``group_bits`` (rows, cols/m) uint8, bit
+t of byte g marking column m*g + t, and ``values`` (rows, cols/m * n),
+a set bit's slot being its exclusive popcount within the group.
 """
 from __future__ import annotations
 
@@ -204,3 +209,52 @@ def tile_dequantize_nf4(q: QTiledBitmapWeight, dtype=torch.float32) -> TiledBitm
 def qtile_decode(q: QTiledBitmapWeight, dtype=torch.float32) -> torch.Tensor:
     """Dense (rows, cols) decode of the quantized tiled format."""
     return tile_decode(tile_dequantize_nf4(q, dtype=dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class NMWeight:
+    """N:M semi-structured matrix: exactly n nonzeros per m columns."""
+    group_bits: torch.Tensor    # uint8 (rows, cols//m), bit t = column m*g + t
+    values: torch.Tensor        # (rows, cols//m * n)
+    cols: int
+    n: int
+    m: int
+
+    @property
+    def rows(self) -> int:
+        return self.group_bits.shape[0]
+
+
+def nm_encode(w: torch.Tensor, n: int = 2, m: int = 4, mask=None):
+    """Encode ``w`` (rows, cols) under an N:M mask (``prune.nm_mask`` of
+    ``w`` unless given).  Returns (NMWeight, residual W - W_hat)."""
+    from repro_torch.core import prune
+    rows, cols = w.shape
+    if cols % m:
+        raise ValueError(f"cols={cols} not divisible by m={m}")
+    if mask is None:
+        mask = prune.nm_mask(w, n=n, m=m)
+    g = mask.reshape(rows, cols // m, m)
+    shifts = torch.arange(m, dtype=torch.int32, device=w.device)
+    group_bits = (g.to(torch.int32) << shifts).sum(dim=-1).to(torch.uint8)
+    ki = g.to(torch.int64)
+    slot = (torch.cumsum(ki, dim=-1) - ki).clamp(max=n - 1)   # 0..n-1 in the group
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    kept = torch.where(g, w.reshape(rows, cols // m, m), zero)
+    values = torch.zeros((rows, cols // m, n), dtype=w.dtype, device=w.device)
+    values.scatter_add_(-1, slot, kept)
+    nmw = NMWeight(group_bits=group_bits, values=values.reshape(rows, cols // m * n),
+                   cols=cols, n=n, m=m)
+    return nmw, prune.residual(w, mask)
+
+
+def nm_decode(nmw: NMWeight) -> torch.Tensor:
+    """Dense (rows, cols) decode of an N:M matrix (slots clamped to n - 1)."""
+    rows, n, m = nmw.rows, nmw.n, nmw.m
+    shifts = torch.arange(m, dtype=torch.uint8, device=nmw.group_bits.device)
+    bits = ((nmw.group_bits[:, :, None] >> shifts) & 1).to(torch.bool)
+    b = bits.to(torch.int64)
+    slot = (torch.cumsum(b, dim=-1) - b).clamp(max=n - 1)
+    gathered = torch.gather(nmw.values.reshape(rows, -1, n), -1, slot)
+    zero = torch.zeros((), dtype=nmw.values.dtype, device=nmw.values.device)
+    return torch.where(bits, gathered, zero).reshape(rows, nmw.cols)

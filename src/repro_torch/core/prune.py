@@ -1,5 +1,5 @@
-"""Magnitude pruning: a static mask on the frozen base weights, mask
-application and residual extraction E = W - W_hat."""
+"""Magnitude pruning: a static mask on the frozen base weights (global or
+N:M), mask application and residual extraction E = W - W_hat."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +32,18 @@ def apply_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def residual(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """E = W - W_hat = the pruned-away entries."""
     return torch.where(mask, torch.zeros((), dtype=w.dtype, device=w.device), w)
+
+
+def nm_mask(w: torch.Tensor, n: int = 2, m: int = 4) -> torch.Tensor:
+    """N:M semi-structured mask: keep the n largest |w| of every m
+    consecutive entries along the last axis (ties to the lower index, a
+    stable argsort of -|w|, as the reference breaks them).  The last dim
+    must be divisible by m."""
+    *lead, cols = w.shape
+    if cols % m:
+        raise ValueError(f"cols={cols} not divisible by m={m}")
+    # f32 holds every bf16 magnitude exactly, so the order is unchanged
+    mag = w.float().abs().reshape(*lead, cols // m, m)
+    order = torch.argsort(-mag, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    return (ranks < n).reshape(w.shape)

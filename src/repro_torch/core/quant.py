@@ -1,11 +1,20 @@
-"""NF4 levels and the error budgets for parity against the reference.
+"""NF4 levels, NF4 block quantization and the error budgets for parity
+against the reference.
 
 Copies of ``repro.core.quant.NF4_LEVELS`` and ``ERROR_BUDGETS`` (a CPU
 test pins both equal).  Budgets are relative-L2 ceilings: ``method:*``
 for a native route against its reference formulation, ``repr:*`` for a
 quantized-base route against the native base, ``kv:*`` for decode over
 a quantized KV cache against the native cache.
+
+``quantize_nf4`` packs codes INTERLEAVED (byte i holds element 2i in its
+low nibble and 2i+1 in its high nibble), unlike the KV caches' split
+packing; with ``block = QBLOCK`` over a row-major (K, N) weight it gives
+the layout ``ops.nf4_matmul`` reads.
 """
+import dataclasses
+import math
+
 import torch
 
 # The 16 NF4 levels (QLoRA, Dettmers et al. 2023): quantiles of N(0, 1)
@@ -17,6 +26,9 @@ NF4_LEVELS = torch.tensor([
     0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
     0.7229568362236023, 1.0,
 ], dtype=torch.float32)
+
+# scale-block width along N of the 2-D NF4 weight layout (ops.nf4_matmul)
+QBLOCK = 64
 
 ERROR_BUDGETS = {
     "method:dense": 1e-4,
@@ -53,3 +65,43 @@ def nf4_index(normed: torch.Tensor) -> torch.Tensor:
     lower index (torch.argmin and jnp.argmin both return the first)."""
     dist = (normed[..., None] - nf4_levels(normed.device)).abs()
     return dist.argmin(dim=-1).to(torch.uint8)
+
+
+@dataclasses.dataclass(frozen=True)
+class NF4Tensor:
+    """NF4-quantized tensor: 4-bit codes packed two per byte (interleaved)
+    and one f32 absmax scale per ``block`` consecutive elements."""
+    codes: torch.Tensor     # uint8 (n_elems_padded // 2,)
+    scales: torch.Tensor    # f32 (n_blocks,)
+    shape: tuple            # logical shape
+    block: int
+
+
+def quantize_nf4(x: torch.Tensor, block: int = 64) -> NF4Tensor:
+    """Blockwise NF4 over the flattened ``x`` (zero-padded to a block
+    multiple): per-block absmax scale, nearest level of each entry."""
+    shape = tuple(x.shape)
+    flat = x.float().reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % block))
+    blocks = flat.reshape(-1, block)
+    scales = blocks.abs().amax(dim=1).clamp(min=1e-12)
+    idx = nf4_index(blocks / scales[:, None]).reshape(-1)
+    codes = idx[0::2] | (idx[1::2] << 4)
+    return NF4Tensor(codes=codes, scales=scales, shape=shape, block=block)
+
+
+def dequantize_nf4(q: NF4Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Level x block scale in f32, then ``dtype``."""
+    idx = torch.stack([q.codes & 0x0F, q.codes >> 4], dim=1).reshape(-1)
+    vals = nf4_levels(q.codes.device)[idx.long()].reshape(-1, q.block) * q.scales[:, None]
+    return vals.reshape(-1)[:math.prod(q.shape)].reshape(q.shape).to(dtype)
+
+
+def nf4_dequant_2d(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The 2-D weight layout decoded: (K, N/2) interleaved codes and
+    (K, N/block) scales -> (K, N) f32, each entry level x its block's
+    scale (byte i of a row holds column 2i low, 2i+1 high)."""
+    kdim = codes.shape[0]
+    idx = torch.stack([codes & 0x0F, codes >> 4], dim=-1).reshape(kdim, -1)
+    vals = nf4_levels(codes.device)[idx.long()].reshape(kdim, scales.shape[1], -1)
+    return (vals * scales[..., None]).reshape(kdim, -1)

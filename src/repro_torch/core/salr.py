@@ -1,20 +1,36 @@
 """SALRLinear: y = x @ W_hat + (x @ A_cat) @ B_cat (+ bias).
 
-W_hat is the statically pruned frozen base, stored in the kernel-native
-tiled bitmap (``core.bitmap.TiledBitmapWeight``, always in the logical
-(d_in, d_out) orientation); A_cat/B_cat fuse the task LoRA adapter with
-the sparsity-preservation residual adapter into one GEMM pair.  With
-``dual_repr`` a layer also carries ``qbase``, an NF4-requantized twin of
-the base (``QTiledBitmapWeight``, the same words) that a mixed-precision
-plan streams at decode; the adapters are shared.
+W_hat is the statically pruned frozen base; A_cat/B_cat fuse the task
+LoRA adapter with the sparsity-preservation residual adapter into one
+GEMM pair.  The base is stored by method:
+
+    bitmap  TiledBitmapWeight, always in the logical (d_in, d_out)
+            orientation                        -> ops.salr_matmul
+    nm      NMWeight (2:4) for a projection stored as W (wo, down)
+                                       -> ops.nm_matmul + ops.lora_matmul;
+            a transposed projection (wq/wk/wv/gate/up) takes its N:M mask
+            along d_in and is re-encoded as a tiled bitmap -> salr_matmul
+    dense   the dense weight                   -> dense GEMM
+    mask    the magnitude-masked dense weight  -> dense GEMM
+
+A flat (dense, mask, N:M) base of a ``transposed`` layer stores W^T, so
+its rows run along d_out as the reference's sharding convention has it.
+With ``dual_repr`` a layer also carries ``qbase``, an NF4-requantized
+twin of the base that a mixed-precision plan streams at decode: a
+``QTiledBitmapWeight`` (the same words) for a tiled base, read by
+``ops.qsalr_matmul``; a ``QDenseWeight`` for the dense base of an
+untransposed layer, read by ``ops.nf4_matmul`` + ``ops.lora_matmul``.
+Other bases get no twin and decode from their native base.  The adapters
+are shared.
 
 ``apply_salr`` dispatches on the execution route: ``kernel`` runs the
-fused SpMM (``kernels.ops.salr_matmul``, ``bitmap_matmul`` for a layer
-whose adapter rank is 0, ``qsalr_matmul`` for the NF4 twin),
-``reference`` decodes the base dense and runs plain GEMMs.  Only the
-bitmap method is ported so far; the kernel wrappers are forward-only
-(the autograd Function, whose backward replays the reference
-formulation, comes with the fine-tuning slice).
+layer's CUDA op where one exists for its base (``bitmap_matmul`` for a
+tiled layer whose adapter rank is 0), ``reference`` decodes the base
+dense and runs plain GEMMs, as does a base with no kernel.  Where the
+kernel route adds two ops' outputs, each is rounded to the model dtype
+and the sum is taken there, as the reference does.  The kernel wrappers
+are forward-only (the autograd Function, whose backward replays the
+reference formulation, comes with the fine-tuning slice).
 """
 from __future__ import annotations
 
@@ -26,6 +42,7 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core import prune
 from repro_torch.core.adapters import LoRAAdapter, init_lora
+from repro_torch.core.quant import QBLOCK, nf4_dequant_2d
 from repro_torch.core.residual import truncated_svd_adapter
 
 
@@ -33,37 +50,65 @@ from repro_torch.core.residual import truncated_svd_adapter
 class SALRConfig:
     """Static compression configuration for one family of linear layers."""
     sparsity: float = 0.5
-    method: str = "bitmap"        # only the bitmap method is ported
+    method: str = "bitmap"        # dense | mask | bitmap | nm
     lora_rank: int = 64
     res_rank: int = 64
+    nm: tuple = (2, 4)
     dtype: str = "float32"
-    backend: str = "kernel"       # the layers' default route
+    # the layers' default route; "kernel" also emits kernel-ready storage
+    # (a transposed N:M layer re-encoded as a tiled bitmap)
+    backend: str = "kernel"
     # also emit ``SALRLinear.qbase``, the NF4 twin a quantized decode
     # route (PhaseRoute.repr) reads
     dual_repr: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
+class QDenseWeight:
+    """Dense base NF4-requantized into the 2-D kernel layout
+    (``ops.nf4_matmul``): codes (K, Np/2) uint8, interleaved, and scales
+    (K, Np/QBLOCK) f32, Np the logical column count padded up to a QBLOCK
+    multiple (padded columns quantize to exact zeros and are sliced off
+    after the GEMM)."""
+    codes: torch.Tensor
+    scales: torch.Tensor
+    shape: tuple                  # logical (K, N)
+
+
+@dataclasses.dataclass(frozen=True)
 class SALRLinear:
-    """Frozen tiled-bitmap base + fused adapters.  ``backend`` records the
-    layer's default execution route; ``qbase`` is the optional NF4 twin of
-    ``base`` (same sparse structure, requantized payload)."""
-    base: bm.TiledBitmapWeight
+    """Frozen base + fused adapters.  ``transposed``: a flat base stores
+    W^T (a tiled base is always in the logical orientation, and its layer
+    reports False).  ``backend`` records the layer's default execution
+    route; ``qbase`` is the optional NF4 twin of ``base``."""
+    base: object                  # TiledBitmapWeight | NMWeight | Tensor
     lora: LoRAAdapter
     res: Optional[LoRAAdapter]
     bias: Optional[torch.Tensor]
     d_in: int
     d_out: int
+    transposed: bool = False
     backend: str = "reference"
-    qbase: Optional[bm.QTiledBitmapWeight] = None
+    qbase: object = None          # QTiledBitmapWeight | QDenseWeight | None
+
+
+def _is_tiled(base) -> bool:
+    return isinstance(base, (bm.TiledBitmapWeight, bm.QTiledBitmapWeight))
 
 
 def materialize_base(base) -> torch.Tensor:
-    """Dense W_hat (d_in, cols) with the tile zero-padding still on (f32
-    for the NF4 twin, whose levels x scales are computed in f32)."""
+    """Dense W_hat in the storage orientation.  A tiled base keeps its
+    tile zero-padding and a QDenseWeight is cut to its logical width; the
+    NF4 twins decode in f32 (levels x scales are computed in f32)."""
+    if isinstance(base, bm.TiledBitmapWeight):
+        return bm.tile_decode(base)
     if isinstance(base, bm.QTiledBitmapWeight):
         return bm.qtile_decode(base)
-    return bm.tile_decode(base)
+    if isinstance(base, bm.NMWeight):
+        return bm.nm_decode(base)
+    if isinstance(base, QDenseWeight):
+        return nf4_dequant_2d(base.codes, base.scales)[:, :base.shape[1]]
+    return base                   # dense / masked-dense tensor
 
 
 def adapter_cat(layer: SALRLinear) -> tuple:
@@ -114,33 +159,62 @@ def _apply_reference(x: torch.Tensor, layer: SALRLinear, base=None) -> torch.Ten
     quantized-repr oracle passes ``layer.qbase``)."""
     if base is None:
         base = layer.base
-    w = materialize_base(base)[:, :layer.d_out].to(x.dtype)
+    w = materialize_base(base)
+    if _is_tiled(base):
+        w = w[:, :layer.d_out]            # drop the tile zero-padding
+    w = w.to(x.dtype)
+    y = x @ (w.T if layer.transposed else w)
     a_cat, b_cat = adapter_cat(layer)
-    y = x @ w + (x @ a_cat) @ b_cat
+    y = y + (x @ a_cat) @ b_cat
     if layer.bias is not None:
         y = y + layer.bias
     return y
 
 
+def _kernel_capable(layer: SALRLinear) -> bool:
+    """Whether a CUDA op exists for this base layout.  A dense or masked
+    base has none (its GEMM is the reference's), nor has a transposed
+    N:M base."""
+    return (_is_tiled(layer.base)
+            or (isinstance(layer.base, bm.NMWeight) and not layer.transposed))
+
+
 def _kernel_dispatch(x: torch.Tensor, layer: SALRLinear) -> torch.Tensor:
-    """Route the forward to the fused SpMM for the tiled base."""
+    """Route the forward to the CUDA op for the layer's base."""
     from repro_torch.kernels import ops
+    base = layer.base
     a_cat, b_cat = adapter_cat(layer)
-    if a_cat.shape[1] == 0:
-        y = ops.bitmap_matmul(x, layer.base)[..., :layer.d_out]
+    if isinstance(base, bm.TiledBitmapWeight):
+        if a_cat.shape[1] == 0:
+            y = ops.bitmap_matmul(x, base)[..., :layer.d_out]
+        else:
+            y = ops.salr_matmul(x, base, a_cat, b_cat)[..., :layer.d_out]
+    elif isinstance(base, bm.NMWeight) and not layer.transposed:
+        y = ops.nm_matmul(x, base)
+        if a_cat.shape[1]:
+            y = y + ops.lora_matmul(x, a_cat, b_cat)
     else:
-        y = ops.salr_matmul(x, layer.base, a_cat, b_cat)[..., :layer.d_out]
+        raise TypeError(f"no CUDA op for base {type(base).__name__} "
+                        f"(transposed={layer.transposed})")
     if layer.bias is not None:
         y = y + layer.bias
     return y
 
 
 def _qkernel_dispatch(x: torch.Tensor, layer: SALRLinear) -> torch.Tensor:
-    """The fused NF4 op over the twin ``layer.qbase``; the adapters and
-    bias are the native path's."""
+    """The CUDA op over the twin ``layer.qbase``; the adapters and bias
+    are the native path's."""
     from repro_torch.kernels import ops
+    qb = layer.qbase
     a_cat, b_cat = adapter_cat(layer)
-    y = ops.qsalr_matmul(x, layer.qbase, a_cat, b_cat)[..., :layer.d_out]
+    if isinstance(qb, bm.QTiledBitmapWeight):
+        y = ops.qsalr_matmul(x, qb, a_cat, b_cat)[..., :layer.d_out]
+    elif isinstance(qb, QDenseWeight):
+        y = ops.nf4_matmul(x, qb.codes, qb.scales)[..., :layer.d_out]
+        if a_cat.shape[1]:
+            y = y + ops.lora_matmul(x, a_cat, b_cat)
+    else:
+        raise TypeError(f"no CUDA op for qbase {type(qb).__name__}")
     if layer.bias is not None:
         y = y + layer.bias
     return y
@@ -152,71 +226,132 @@ def apply_salr(x: torch.Tensor, layer: SALRLinear, backend: Optional[str] = None
 
     ``backend`` (explicit argument, usually the threaded plan route's
     ``linear``; then any active plan scope; then ``layer.backend``)
-    selects the fused kernel or the dense reference path.  ``base_repr``
-    (the route's ``repr``, then any plan scope, then ``native``): a
-    quantized repr reads the NF4 twin ``layer.qbase`` -- through
-    ``qsalr_matmul`` on the kernel route, dequantized on the reference
-    route; a layer without a twin reads its native base."""
+    selects the CUDA op or the dense reference path; a base with no CUDA
+    op takes the reference path whatever the route.  ``base_repr`` (the
+    route's ``repr``, then any plan scope, then ``native``): a quantized
+    repr reads the NF4 twin ``layer.qbase`` -- through its CUDA op on the
+    kernel route, dequantized on the reference route; a layer without a
+    twin reads its native base."""
     b = _resolve_backend(layer, backend)
     if _resolve_repr(base_repr) != "native" and layer.qbase is not None:
         if b == "kernel":
             return _qkernel_dispatch(x, layer)
         return _apply_reference(x, layer, base=layer.qbase)
-    if b == "kernel":
+    if b == "kernel" and _kernel_capable(layer):
         return _kernel_dispatch(x, layer)
     return _apply_reference(x, layer)
 
 
 def compress_linear(gen: torch.Generator, w: torch.Tensor, cfg: SALRConfig,
-                    bias: Optional[torch.Tensor] = None) -> SALRLinear:
+                    bias: Optional[torch.Tensor] = None,
+                    transposed: bool = False) -> SALRLinear:
     """Compress a dense weight W (d_in, d_out) into a SALRLinear.
 
-    Magnitude-prune -> tile-encode the base (kernel-native storage) ->
-    truncated-SVD the total residual (pruned entries + capacity spill)
-    into the ``res`` adapter -> fresh LoRA adapter drawn from ``gen`` (a
-    CPU generator).  ``w`` is cast to the model dtype before the mask,
-    so at bf16 the mask is taken on bf16-rounded magnitudes."""
-    if cfg.method != "bitmap":
-        raise NotImplementedError(
-            f"SALR method {cfg.method!r} is not yet ported (bitmap only)")
+    Prune -> encode the base (``cfg.method``) -> truncated-SVD the total
+    residual (pruned entries + capacity spill) into the ``res`` adapter
+    -> fresh LoRA adapter drawn from ``gen`` (a CPU generator).  A flat
+    base of a ``transposed`` layer stores W^T and takes its mask in that
+    orientation.  The bitmap and N:M bases are encoded from ``w`` cast to
+    the model dtype (at bf16 the mask is taken on bf16-rounded
+    magnitudes); the masked-dense base takes its mask on ``w`` as given.
+    With ``cfg.backend == "kernel"`` the bitmap base and a transposed N:M
+    base are emitted as logical-orientation tiled bitmaps (the layer then
+    reports ``transposed=False``)."""
     d_in, d_out = w.shape
     dtype = getattr(torch, cfg.dtype)
-    base, e = _tiled_encode(w.to(dtype), cfg)
-    res_ad = (truncated_svd_adapter(e, cfg.res_rank, dtype=dtype)
-              if cfg.res_rank > 0 else None)
+    store = w.T if transposed else w
+    kernel_ready = cfg.backend == "kernel"
+    res_ad = None
+    out_transposed = transposed
+    if cfg.method == "dense":
+        base = store.to(dtype)
+    elif cfg.method == "mask":
+        mask = prune.magnitude_mask(store, cfg.sparsity)
+        base = prune.apply_mask(store, mask).to(dtype)
+        res_ad = _res_adapter(prune.residual(store, mask), cfg, transposed, dtype)
+    elif cfg.method == "bitmap":
+        base, e = _tiled_encode(w.to(dtype), cfg)
+        res_ad = _res_adapter(e, cfg, False, dtype)
+        out_transposed = False
+    elif cfg.method == "nm":
+        n, m = cfg.nm
+        if kernel_ready and transposed:
+            base, e = _tiled_nm_base(w, cfg, dtype)
+            res_ad = _res_adapter(e, cfg, False, dtype)
+            out_transposed = False
+        else:
+            base, e = bm.nm_encode(store.to(dtype), n=n, m=m)
+            res_ad = _res_adapter(e, cfg, transposed, dtype)
+    else:
+        raise NotImplementedError(f"SALR method {cfg.method!r} is not yet ported "
+                                  "(dense, mask, bitmap, nm)")
     lora = init_lora(gen, d_in, d_out, cfg.lora_rank, dtype=dtype,
                      device=w.device)
     layer = SALRLinear(base=base, lora=lora, res=res_ad,
                        bias=None if bias is None else bias.to(dtype),
-                       d_in=d_in, d_out=d_out, backend=cfg.backend)
+                       d_in=d_in, d_out=d_out, transposed=out_transposed,
+                       backend=cfg.backend)
     if cfg.dual_repr:
         layer = dataclasses.replace(layer, qbase=attach_qbase(layer))
     return layer
 
 
-def attach_qbase(layer: SALRLinear) -> bm.QTiledBitmapWeight:
-    """NF4 twin of a tiled-bitmap base for mixed-precision routes: the
-    words are shared, each cell's values requantized.  The quantization
-    error is not folded into the residual adapter (the adapters are
-    shared with the native base), so the route's error is exactly the
-    NF4 roundtrip."""
-    if isinstance(layer.base, bm.TiledBitmapWeight):
-        return bm.tile_quantize_nf4(layer.base)[0]
-    raise NotImplementedError(
-        f"the NF4 twin of a {type(layer.base).__name__} base (QDenseWeight, "
-        "ops.nf4_matmul) is not yet ported")
+def attach_qbase(layer: SALRLinear):
+    """NF4 twin of a layer's base for mixed-precision routes, or None.
+
+    A tiled-bitmap base requantizes per cell (``QTiledBitmapWeight``
+    sharing the words); the dense or masked base of an untransposed layer
+    requantizes into the ``ops.nf4_matmul`` layout (``QDenseWeight``,
+    columns zero-padded to a ``QBLOCK`` multiple, where they quantize to
+    exact zeros).  Other bases (N:M, transposed flat) get no twin: their
+    quantized route reads the native base.  The quantization error is not
+    folded into the residual adapter (the adapters are shared with the
+    native base), so the route's error is exactly the NF4 roundtrip."""
+    base = layer.base
+    if isinstance(base, bm.TiledBitmapWeight):
+        return bm.tile_quantize_nf4(base)[0]
+    if isinstance(base, torch.Tensor) and base.ndim == 2 and not layer.transposed:
+        from repro_torch.kernels import ops
+        kdim, n = base.shape
+        wp = torch.nn.functional.pad(base.float(), (0, (-n) % QBLOCK))
+        codes, scales = ops.nf4_encode_2d(wp)
+        return QDenseWeight(codes=codes, scales=scales, shape=(kdim, n))
+    return None
 
 
-def _tiled_encode(w: torch.Tensor, cfg: SALRConfig):
-    """Tile-encode a logical (d_in, d_out) weight with static capacity.
-    Returns (TiledBitmapWeight, residual incl. spill)."""
+def _tiled_encode(w: torch.Tensor, cfg: SALRConfig, mask=None, cap_t=None):
+    """Tile-encode a logical (d_in, d_out) weight with static capacity
+    (``mask`` and ``cap_t`` default to the magnitude mask at
+    ``cfg.sparsity`` and its tiled capacity).  Returns (TiledBitmapWeight,
+    residual incl. spill)."""
     d_in, d_out = w.shape
     tile = bm.default_tile(d_out)
-    mask = prune.magnitude_mask(w, cfg.sparsity)
-    cap_t = bm.tiled_capacity(tile, cfg.sparsity)
+    if mask is None:
+        mask = prune.magnitude_mask(w, cfg.sparsity)
+    if cap_t is None:
+        cap_t = bm.tiled_capacity(tile, cfg.sparsity)
     w_hat = prune.apply_mask(w, mask)
     pad = bm.round_up(d_out, tile) - d_out
     w_hat = torch.nn.functional.pad(w_hat, (0, pad))
     mask_p = torch.nn.functional.pad(mask, (0, pad))
     tbw, spill = bm.tile_encode(w_hat, mask_p, tile, cap_t)
     return tbw, prune.residual(w, mask) + spill[:, :d_out]
+
+
+def _tiled_nm_base(w: torch.Tensor, cfg: SALRConfig, dtype):
+    """A transposed N:M layer, kernel-ready: the N:M mask is taken in the
+    storage orientation (groups along d_in), then the masked weight is
+    re-encoded as a logical tiled bitmap (capacity at sparsity 1 - n/m)."""
+    n, m = cfg.nm
+    wd = w.to(dtype)
+    mask_store = prune.nm_mask(wd.T, n=n, m=m)
+    cap_t = bm.tiled_capacity(bm.default_tile(w.shape[1]), 1.0 - n / m)
+    return _tiled_encode(wd, cfg, mask=mask_store.T, cap_t=cap_t)
+
+
+def _res_adapter(e_store: torch.Tensor, cfg: SALRConfig, transposed: bool, dtype):
+    """The residual adapter of E given in the storage orientation."""
+    if cfg.res_rank <= 0:
+        return None
+    e = e_store.T if transposed else e_store    # back to (d_in, d_out)
+    return truncated_svd_adapter(e, cfg.res_rank, dtype=dtype)

@@ -37,6 +37,9 @@ KERNELS = {
     "ring_nf4_gqa_attention": ("quant_attention.cu", [_P] * 7 + [_I] * 7 + [_P]),
     "paged_quant_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
     "paged_nf4_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
+    "nm_spmm": ("nm_spmm.cu", [_P] * 4 + [_I] * 7 + [_P]),
+    "fused_lora": ("fused_lora.cu", [_P] * 4 + [_I] * 6 + [_P]),
+    "nf4_spmm": ("nf4_spmm.cu", [_P] * 4 + [_I] * 5 + [_P]),
 }
 
 _LIBS: dict = {}                  # kernel name -> its loaded library

@@ -16,12 +16,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitmap as bm
+from repro_torch.core.quant import QBLOCK, quantize_nf4
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"salr_spmm": 0, "bitmap_spmm": 0, "paged_gqa_attention": 0,
             "qsalr_spmm": 0, "ring_quant_gqa_attention": 0,
             "paged_quant_gqa_attention": 0, "ring_nf4_gqa_attention": 0,
-            "paged_nf4_gqa_attention": 0}
+            "paged_nf4_gqa_attention": 0, "nm_spmm": 0, "fused_lora": 0,
+            "nf4_spmm": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -159,6 +161,109 @@ def salr_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight,
                     u.data_ptr(), y.data_ptr(), m, k, r, tbw.n_tiles,
                     tbw.tile // 32, tbw.cap_t, code)
     return y.reshape(*lead, tbw.cols)
+
+
+def nm_matmul(x: torch.Tensor, nmw: bm.NMWeight) -> torch.Tensor:
+    """y = x @ W_hat with W_hat in N:M form, decoded inside the GEMM.
+    x: (..., K); returns (..., nmw.cols)."""
+    name = "nm_spmm"
+    _forward_only(name, x, nmw.values)
+    x2, lead = _flatten(x)
+    k, groups = nmw.group_bits.shape
+    if (k != x2.shape[1] or groups * nmw.m != nmw.cols
+            or nmw.values.shape != (k, groups * nmw.n) or not 0 < nmw.n <= nmw.m <= 8):
+        raise ValueError(f"{name}: x has K={x2.shape[1]}; group bits "
+                         f"{tuple(nmw.group_bits.shape)}, values {tuple(nmw.values.shape)} "
+                         f"do not fit a {nmw.n}:{nmw.m} weight of {nmw.cols} columns "
+                         "(m <= 8)")
+    if nmw.group_bits.dtype != torch.uint8:
+        raise TypeError(f"{name}: group bits must be uint8")
+    if _placement(name, x2, nmw.group_bits, nmw.values) == "cpu":
+        y = ref.nm_spmm_ref(x2, nmw)
+    else:
+        if nmw.values.dtype != x2.dtype:
+            raise TypeError(f"{name}: values must be {x2.dtype}")
+        if nmw.n not in (1, 2, 4):
+            raise ValueError(f"{name}: the kernel is built for n = 1, 2, 4 (got {nmw.n})")
+        code = _check_cuda(name, x2.dtype, nmw.group_bits, nmw.values)
+        m = x2.shape[0]
+        y = torch.empty((m, nmw.cols), dtype=x2.dtype, device=x2.device)
+        if m:
+            _launch(name, x2.device, x2.data_ptr(), nmw.group_bits.data_ptr(),
+                    nmw.values.data_ptr(), y.data_ptr(), m, k, nmw.cols, nmw.n, nmw.m,
+                    code)
+    return y.reshape(*lead, nmw.cols)
+
+
+# the largest adapter rank the fused_lora kernel keeps on chip
+LORA_MAX_RANK = 256
+
+
+def lora_matmul(x: torch.Tensor, a_cat: torch.Tensor, b_cat: torch.Tensor) -> torch.Tensor:
+    """y = (x @ A_cat) @ B_cat, u = x @ A_cat kept on chip and rounded to
+    B_cat's dtype.  x: (..., K); a_cat (K, R), b_cat (R, N) with R > 0;
+    returns (..., N)."""
+    name = "fused_lora"
+    _forward_only(name, x, a_cat, b_cat)
+    x2, lead = _flatten(x)
+    k, r = a_cat.shape
+    n = b_cat.shape[1]
+    if k != x2.shape[1] or b_cat.shape[0] != r or r == 0:
+        raise ValueError(f"{name}: x has K={x2.shape[1]}; adapter shapes "
+                         f"{tuple(a_cat.shape)} / {tuple(b_cat.shape)} do not fit "
+                         f"(K, R>0) / (R, N)")
+    if _placement(name, x2, a_cat, b_cat) == "cpu":
+        y = ref.fused_lora_ref(x2, a_cat, b_cat)
+    else:
+        if a_cat.dtype != x2.dtype or b_cat.dtype != x2.dtype:
+            raise TypeError(f"{name}: adapters must be {x2.dtype}")
+        if r > LORA_MAX_RANK:
+            raise ValueError(f"{name}: the kernel keeps u on chip up to rank "
+                             f"{LORA_MAX_RANK} (got {r})")
+        code = _check_cuda(name, x2.dtype, a_cat, b_cat)
+        m = x2.shape[0]
+        y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        if m:
+            _launch(name, x2.device, x2.data_ptr(), a_cat.data_ptr(), b_cat.data_ptr(),
+                    y.data_ptr(), m, k, r, n, code)
+    return y.reshape(*lead, n)
+
+
+def nf4_encode_2d(w: torch.Tensor) -> tuple:
+    """Quantize a (K, N) weight into the 2-D NF4 layout: codes (K, N/2)
+    uint8, interleaved, and scales (K, N/QBLOCK) f32.  N % QBLOCK == 0."""
+    kdim, n = w.shape
+    if n % QBLOCK:
+        raise ValueError(f"N={n} must be a multiple of {QBLOCK}")
+    q = quantize_nf4(w, block=QBLOCK)
+    return q.codes.reshape(kdim, n // 2), q.scales.reshape(kdim, n // QBLOCK)
+
+
+def nf4_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(codes, scales) with the NF4 dequantization inside
+    the GEMM.  x: (..., K); codes (K, N/2) uint8 (interleaved); scales
+    (K, N/QBLOCK) f32; returns (..., N)."""
+    name = "nf4_spmm"
+    _forward_only(name, x)
+    x2, lead = _flatten(x)
+    k, half = codes.shape
+    n = 2 * half
+    if k != x2.shape[1] or n % QBLOCK or scales.shape != (k, n // QBLOCK):
+        raise ValueError(f"{name}: x has K={x2.shape[1]}; codes {tuple(codes.shape)} / "
+                         f"scales {tuple(scales.shape)} do not fit (K, N/2) / "
+                         f"(K, N/{QBLOCK}) with N % {QBLOCK} == 0")
+    if codes.dtype != torch.uint8 or scales.dtype != torch.float32:
+        raise TypeError(f"{name}: codes must be uint8 and scales float32")
+    if _placement(name, x2, codes, scales) == "cpu":
+        y = ref.nf4_spmm_ref(x2, codes, scales)
+    else:
+        code = _check_cuda(name, x2.dtype, codes, scales)
+        m = x2.shape[0]
+        y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        if m:
+            _launch(name, x2.device, x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                    y.data_ptr(), m, k, n, code)
+    return y.reshape(*lead, n)
 
 
 def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,

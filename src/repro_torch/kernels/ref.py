@@ -8,7 +8,7 @@ import math
 import torch
 
 from repro_torch.core import bitmap as bm
-from repro_torch.core.quant import nf4_levels
+from repro_torch.core.quant import nf4_dequant_2d, nf4_levels
 
 NEG_INF = -1e30
 
@@ -36,6 +36,27 @@ def qsalr_spmm_ref(x: torch.Tensor, q: bm.QTiledBitmapWeight,
     base = x.float() @ bm.qtile_decode(q, dtype=x.dtype).float()
     u = (x.float() @ a_cat.float()).to(b_cat.dtype)
     return (base + u.float() @ b_cat.float()).to(x.dtype)
+
+
+def nm_spmm_ref(x: torch.Tensor, nmw: bm.NMWeight) -> torch.Tensor:
+    """y = x @ W_hat for an N:M base: an exact decode (the weight as x's
+    dtype, as the tile enters the product), f32 sum, one rounding."""
+    return (x.float() @ bm.nm_decode(nmw).to(x.dtype).float()).to(x.dtype)
+
+
+def fused_lora_ref(x: torch.Tensor, a_cat: torch.Tensor,
+                   b_cat: torch.Tensor) -> torch.Tensor:
+    """y = (x @ A_cat) @ B_cat: u = x @ A_cat summed in f32 and rounded to
+    B_cat's dtype, then u @ B_cat summed in f32 and rounded to x's."""
+    u = (x.float() @ a_cat.float()).to(b_cat.dtype)
+    return (u.float() @ b_cat.float()).to(x.dtype)
+
+
+def nf4_spmm_ref(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(codes, scales): each weight NF4 level x block scale
+    in f32, rounded to x's dtype before the product; f32 sum, one rounding."""
+    w = nf4_dequant_2d(codes, scales).to(x.dtype)
+    return (x.float() @ w.float()).to(x.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -36,9 +36,23 @@ from repro_torch.train.step import greedy_generate, replay_logits
 # rounding noise on a logit gap
 NEAR_TIE_SIGMAS = 3.0
 
+# the ops the linears of a kernel route run, by SALR method (the base the
+# layers store), on the native base and on its NF4 twin
 _KERNEL_ROUTES = {
     "bitmap": "ops.salr_matmul (fused bitmap decode+GEMM+adapters)",
-    "bitmap_nf4": "ops.qsalr_matmul (NF4 dequant-in-kernel)",
+    "nm": "ops.salr_matmul (wq/wk/wv/gate/up, N:M masks re-encoded as tiled bitmaps) "
+          "+ ops.nm_matmul + ops.lora_matmul (wo/down, 2:4 base)",
+    "dense": "dense GEMM (a dense base has no fused kernel)",
+    "mask": "dense GEMM on the masked base (a dense base has no fused kernel)",
+}
+_DENSE_TWIN = ("ops.nf4_matmul + ops.lora_matmul (wo/down: the NF4 twin; "
+               "wq/wk/wv/gate/up have none: dense GEMM)")
+_TWIN_ROUTES = {
+    "bitmap": "ops.qsalr_matmul (NF4 dequant-in-kernel)",
+    "nm": "ops.qsalr_matmul (wq/wk/wv/gate/up: the NF4 twin) + ops.nm_matmul "
+          "+ ops.lora_matmul (wo/down: no twin)",
+    "dense": _DENSE_TWIN,
+    "mask": _DENSE_TWIN,
 }
 _ATTENTION_ROUTES = {
     ("paged", "native"): "ops.paged_gqa_attention",
@@ -54,7 +68,9 @@ def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
     """Per-phase route line: which op every SALR linear runs and, for
     decode, which attention op reads the cache in the plan's decode
     layout.  A quantized decode repr reads the NF4 twin, which
-    ``compress_linear`` emits whenever the config asks for one."""
+    ``compress_linear`` emits whenever the config asks for one; the op
+    that reads it follows the base it was made from (a tiled bitmap's
+    twin: qsalr_matmul; a dense or masked base's: nf4_matmul)."""
     parts = []
     for phase in ("prefill", "decode"):
         r = plan.route(phase)
@@ -62,7 +78,7 @@ def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
         if r.linear != "kernel":
             desc = "dense decode + GEMM"
         else:
-            desc = _KERNEL_ROUTES["bitmap_nf4" if quant else cfg.salr.method]
+            desc = (_TWIN_ROUTES if quant else _KERNEL_ROUTES)[cfg.salr.method]
         desc += f", kv_dtype={r.kv_dtype}"
         if phase == "decode":
             desc += f", attention={_ATTENTION_ROUTES[r.kv, r.kv_dtype]}"

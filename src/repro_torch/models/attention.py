@@ -192,9 +192,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def init_gqa(gen: torch.Generator, cfg: ArchConfig, device):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     return {"norm": init_rmsnorm(d, cfg, device),
-            "wq": init_linear(gen, d, cfg.n_heads * hd, cfg, "attn", device),
-            "wk": init_linear(gen, d, cfg.n_kv_heads * hd, cfg, "attn", device),
-            "wv": init_linear(gen, d, cfg.n_kv_heads * hd, cfg, "attn", device),
+            "wq": init_linear(gen, d, cfg.n_heads * hd, cfg, "attn", device,
+                              transposed=True),
+            "wk": init_linear(gen, d, cfg.n_kv_heads * hd, cfg, "attn", device,
+                              transposed=True),
+            "wv": init_linear(gen, d, cfg.n_kv_heads * hd, cfg, "attn", device,
+                              transposed=True),
             "wo": init_linear(gen, cfg.n_heads * hd, d, cfg, "attn", device)}
 
 

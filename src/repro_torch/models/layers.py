@@ -2,8 +2,9 @@
 embedding and LM head.
 
 Every projection goes through ``init_linear``/``apply_linear``: a linear
-of a compressed target family is a ``SALRLinear`` (frozen tiled-bitmap
-base + fused adapters), any other linear a plain ``{"w": (d_in, d_out)}``.
+of a compressed target family is a ``SALRLinear`` (frozen base in the
+config's SALR method + fused adapters), any other linear a plain
+``{"w": (d_in, d_out)}``.
 Weights are drawn from an explicit CPU ``torch.Generator`` (the same
 draws on every device) and then moved to ``device``.
 """
@@ -31,12 +32,13 @@ def salr_cfg_for(cfg: ArchConfig) -> SALRConfig:
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, cfg: ArchConfig,
-                target: str, device):
+                target: str, device, transposed: bool = False):
     """A model linear, W ~ N(0, 1/d_in): SALR-compressed when the target
-    family is enabled."""
+    family is enabled.  ``transposed``: a flat base stores W^T (the
+    reference passes it for wq/wk/wv and gate/up)."""
     w = (torch.randn((d_in, d_out), generator=gen) / math.sqrt(d_in)).to(device)
     if cfg.salr.enabled and target in cfg.salr.targets:
-        return compress_linear(gen, w, salr_cfg_for(cfg))
+        return compress_linear(gen, w, salr_cfg_for(cfg), transposed=transposed)
     return {"w": w.to(model_dtype(cfg))}
 
 
@@ -85,8 +87,8 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
     if kind != "swiglu":
         raise NotImplementedError(f"mlp kind {kind!r} is not yet ported")
     d, f = cfg.d_model, cfg.d_ff
-    return {"gate": init_linear(gen, d, f, cfg, "mlp", device),
-            "up": init_linear(gen, d, f, cfg, "mlp", device),
+    return {"gate": init_linear(gen, d, f, cfg, "mlp", device, transposed=True),
+            "up": init_linear(gen, d, f, cfg, "mlp", device, transposed=True),
             "down": init_linear(gen, f, d, cfg, "mlp", device)}
 
 

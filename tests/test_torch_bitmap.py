@@ -128,6 +128,7 @@ def test_compress_linear_masks_bf16_rounded_magnitudes():
 
 
 def test_compress_linear_rejects_unported_method():
+    # bitmap_nf4 as a primary base is the one method still to port
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tsalr.compress_linear(torch.Generator(), torch.zeros(32, 32),
-                              tsalr.SALRConfig(method="nm"))
+                              tsalr.SALRConfig(method="bitmap_nf4"))

@@ -161,6 +161,72 @@ def test_quant_attention_kernels_match_plain_and_skip_dead_data(cuda, kv, paged,
         torch.testing.assert_close(other, y, rtol=0, atol=0)
 
 
+_ROWS = (1, 4, 8, 33, 100)       # 4 and 8: the main path's decode batches
+
+
+def _rows_independent(fn, x, y) -> None:
+    """Bitwise: the first and last rows computed alone equal the batch's."""
+    torch.testing.assert_close(fn(x[:1]), y[:1], rtol=0, atol=0)
+    torch.testing.assert_close(fn(x[-1:]), y[-1:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,nm", [(576, 576, (2, 4)), (100, 200, (2, 4)), (64, 136, (1, 4)),
+                                    (48, 128, (4, 8))])
+def test_nm_kernel_matches_plain_and_rows_are_independent(cuda, k, n, nm, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    w = (torch.randn((k, n), generator=gen, device=cuda) / 10).to(dtype)
+    nmw, _ = tbm.nm_encode(w, *nm)
+    for m in _ROWS:
+        x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        y = ops.nm_matmul(x, nmw)
+        assert _close(y, ref.nm_spmm_ref(x, nmw), dtype)
+        _rows_independent(lambda xs: ops.nm_matmul(xs, nmw), x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,r,n", [(576, 128, 576), (1536, 128, 576), (100, 24, 200),
+                                   (64, 256, 72)])
+def test_fused_lora_kernel_matches_plain_and_rows_are_independent(cuda, k, r, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(k + r)
+    a = (torch.randn((k, r), generator=gen, device=cuda) / k ** 0.5).to(dtype)
+    b = (torch.randn((r, n), generator=gen, device=cuda) / r ** 0.5).to(dtype)
+    for m in _ROWS:
+        x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        y = ops.lora_matmul(x, a, b)
+        y_ref = ref.fused_lora_ref(x, a, b)
+        assert _close(y, y_ref, dtype)
+        _rows_independent(lambda xs: ops.lora_matmul(xs, a, b), x, y)
+        if dtype == torch.bfloat16 and m == 100:
+            # the limit rejects u = x @ A_cat left unrounded
+            unrounded = ((x.float() @ a.float()) @ b.float()).to(dtype)
+            assert not _close(unrounded, y_ref, dtype)
+    with pytest.raises(ValueError, match="rank"):
+        ops.lora_matmul(x, torch.zeros((k, 300), device=cuda, dtype=dtype),
+                        torch.zeros((300, n), device=cuda, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(576, 576), (1536, 576), (96, 96), (100, 192)])
+def test_nf4_kernel_matches_plain_and_rows_are_independent(cuda, k, n, dtype):
+    """N = 96 pads to 128 (the smoke width's twin), as attach_qbase pads."""
+    gen = torch.Generator(device=cuda).manual_seed(k * n)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    codes, scales = ops.nf4_encode_2d(torch.nn.functional.pad(w, (0, (-n) % 64)))
+    for m in _ROWS:
+        x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        y = ops.nf4_matmul(x, codes, scales)
+        y_ref = ref.nf4_spmm_ref(x, codes, scales)
+        assert _close(y, y_ref, dtype)
+        assert not y[:, n:].any()                 # padded columns quantize to zeros
+        _rows_independent(lambda xs: ops.nf4_matmul(xs, codes, scales), x, y)
+        if dtype == torch.bfloat16 and m == 100:
+            # the limit rejects the dequantized weight left unrounded
+            from repro_torch.core.quant import nf4_dequant_2d
+            unrounded = (x.float() @ nf4_dequant_2d(codes, scales)).to(dtype)
+            assert not _close(unrounded, y_ref, dtype)
+
+
 def test_wrappers_launch_and_count(cuda):
     w = torch.randn((64, 64), device=cuda)
     mask = prune.magnitude_mask(w, 0.5)
@@ -171,3 +237,14 @@ def test_wrappers_launch_and_count(cuda):
     with pytest.raises(TypeError):
         ops.bitmap_matmul(torch.randn((3, 64), device=cuda, dtype=torch.float16),
                           tbw)
+    x = torch.randn((3, 64), device=cuda)
+    nmw, _ = tbm.nm_encode(w)
+    codes, scales = ops.nf4_encode_2d(w)
+    before = dict(ops.LAUNCHES)
+    ops.nm_matmul(x, nmw)
+    ops.lora_matmul(x, w[:, :8].contiguous(), w[:8].contiguous())
+    ops.nf4_matmul(x, codes, scales)
+    for name in ("nm_spmm", "fused_lora", "nf4_spmm"):
+        assert ops.LAUNCHES[name] == before[name] + 1
+    with pytest.raises(TypeError):
+        ops.nm_matmul(x.to(torch.bfloat16), nmw)

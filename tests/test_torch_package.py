@@ -20,7 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # the kernel wrappers of the port, one per CUDA kernel
 _WRAPPERS = ("salr_matmul", "bitmap_matmul", "paged_gqa_attention", "qsalr_matmul",
              "ring_quant_gqa_attention", "paged_quant_gqa_attention",
-             "ring_nf4_gqa_attention", "paged_nf4_gqa_attention")
+             "ring_nf4_gqa_attention", "paged_nf4_gqa_attention", "nm_matmul",
+             "lora_matmul", "nf4_matmul")
 
 
 def _fields(obj):
@@ -93,19 +94,21 @@ def test_chip_smoke_refuses_without_cuda():
 
 
 def test_unported_routes_raise():
-    """The N:M method and the NF4 twin of a dense/mask base (QDenseWeight,
-    ops.nf4_matmul) are not ported yet and say so; the quantized plans
-    (int8/NF4 KV, the bitmap NF4 twin) resolve."""
+    """The NF4 tiled bitmap as a primary base (method="bitmap_nf4") is not
+    ported yet and says so; the NF4 twin of a dense/mask base
+    (QDenseWeight, ops.nf4_matmul) is, for an untransposed layer only, as
+    the reference has it; the quantized plans (int8/NF4 KV, the bitmap NF4
+    twin) resolve."""
     from repro_torch.core import salr
     cfg = tconfigs.get("smollm_135m", smoke=True)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        salr.compress_linear(gen, torch.randn(32, 32), salr.SALRConfig(method="nm"))
+        salr.compress_linear(gen, torch.randn(32, 32), salr.SALRConfig(method="bitmap_nf4"))
     layer = salr.compress_linear(gen, torch.randn(32, 32), salr.SALRConfig(lora_rank=2,
                                                                            res_rank=2))
     dense = dataclasses.replace(layer, base=salr.materialize_base(layer.base))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        salr.attach_qbase(dense)
+    assert isinstance(salr.attach_qbase(dense), salr.QDenseWeight)
+    assert salr.attach_qbase(dataclasses.replace(dense, transposed=True)) is None
     quant = cfg.with_(kv_cache="int8", decode_kv_cache="nf4",
                       salr=dataclasses.replace(cfg.salr, decode_repr="bitmap_nf4"))
     plan = execplan.resolve_plan(quant)
