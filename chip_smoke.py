@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
 Phases (any failure exits non-zero before the result line):
 
-1. Card and build: the card's name and power limit, then the seven CUDA
-   sources of ``src/repro_torch/csrc`` (eleven kernels) built with nvcc,
+1. Card and build: the card's name and power limit, then the eight CUDA
+   sources of ``src/repro_torch/csrc`` (fifteen kernels) built with nvcc,
    one process per source, in parallel.
 2. Kernel vs plain version, in bf16 and in f32 with TF32 off, held to
    the plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32
@@ -32,9 +32,17 @@ Phases (any failure exits non-zero before the result line):
    1024, and ``nf4_spmm`` at the smoke width's padded shape (96 columns
    -> 128); the bf16 limit must reject one planted fault each: values
    read at the inclusive popcount, u left unrounded, the dequantized
-   weight left unrounded.  Each is timed (profiler device time, L2
-   flushed before every launch) beside the plain version and one library
-   call as a yardstick.
+   weight left unrounded.  The four expert-stack kernels
+   (``grouped_salr_spmm``, ``grouped_qsalr_spmm``, ``decode_salr_spmm``,
+   ``decode_qsalr_spmm``) at granite_moe_1b_a400m's gate/up and down
+   stacks (E 32, top-8, R 128) at the rows the main path gives them
+   (grouped: 64 and 8192 assignment rows; decode: 64 and 1024), with two
+   planted faults each (u unrounded; a tile reading its neighbour
+   expert's weights), grouped and decode bitwise equal per row, rows
+   bitwise independent of the token count (1, 4, 8, 33, 128), decode pad
+   rows exactly zero with NaN in their x rows.  Each is timed (profiler
+   device time, L2 flushed before every launch) beside the plain version
+   and one library call as a yardstick.
 3. Main path: smollm_135m at full width, compressed once on the GPU from
    seeded dense weights with the NF4 twin (``dual_repr``); 8 requests
    (prompt 128 sharing a 64-token prefix, 32 new tokens) served by the
@@ -59,18 +67,31 @@ Phases (any failure exits non-zero before the result line):
    adapter term dropped beyond it; (B) ``method="mask"`` with
    ``decode_repr="nf4"``, whose replayed decode logits must lie within
    ``TWIN_ROUTE_TOL`` of the reference route and ``down`` served from
-   its native base beyond it.
-4. Launch counts, set to 0 before each of the five runs and read after
+   its native base beyond it.  Then granite_moe_1b_a400m at full width
+   (24 layers, 32 experts, top-8), compressed once with the NF4 twin of
+   every projection and expert stack, the same 8 requests served by
+   greedy_generate (its own plan: the grouped expert kernels) and by the
+   continuous engine at 8 slots (its plan from the slots and its largest
+   bucket: the decode-grid kernels), under the native plan (prefill
+   logits within ``ROUTE_TOL`` of the reference route, the dense masked
+   experts) and under the NF4 twin with int8 decode KV (replayed decode
+   logits within ``QROUTE_TOL``), each with two planted faults beyond the
+   limit (the down experts' adapter term dropped; one layer routing to
+   top_i + 1).
+4. Launch counts, set to 0 before each of the seven runs and read after
    it: the native run 210 ``salr_spmm`` per forward (7 projections x 30
    layers); a quantized run 210 ``qsalr_spmm`` and 30 quantized
    attention launches per decode step and ``salr_spmm`` at prefill
    only; (A) 150 ``salr_spmm``, 60 ``nm_spmm`` and 60 ``fused_lora``
    per forward; (B) 60 ``nf4_spmm`` and 60 ``fused_lora`` per decode
-   step and no linear kernel at prefill; every kernel launched at least
-   once.
+   step and no linear kernel at prefill; granite 96 ``salr_spmm`` and
+   72 expert-stack launches per forward (grouped in greedy_generate,
+   decode grid in the engine), 24 decode attention launches per step,
+   the twin's ``qsalr_spmm`` / ``*_qsalr_spmm`` at its decode; every
+   kernel launched at least once.
 
 The last lines are the card (nvidia-smi), a JSON object describing each
-kernel (its launches summed over the five main-path runs, its times at
+kernel (its launches summed over the seven main-path runs, its times at
 one decode-size call), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -97,8 +118,11 @@ TOL = {"bfloat16": 5e-4, "float32": 1e-5}
 # rounding at other places through 30 layers): sound readings 1.9e-2 to
 # 2.4e-2 over seeds 0-2, a projection shape's adapter term dropped reads
 # 0.23 to 0.71; under method="nm" sound 2.0e-2 to 2.2e-2, wo/down's
-# adapter term dropped 0.70 to 0.78.  A guard against gross divergence
-# only: subtle faults (an unrounded u) are phase 2's to catch
+# adapter term dropped 0.70 to 0.78; granite_moe_1b_a400m (24 layers of
+# top-8 experts) sound 2.2e-2 to 4.1e-2, the down experts' adapter term
+# dropped 0.10 to 0.11, one layer routing to top_i + 1 0.37 to 0.46.  A
+# guard against gross divergence only: subtle faults (an unrounded u)
+# are phase 2's to catch
 ROUTE_TOL = 7e-2
 # the same under a mixed-precision plan, per decode KV precision, on the
 # decode logits of 16 replayed greedy steps of 4 requests: kernel route
@@ -110,7 +134,9 @@ ROUTE_TOL = 7e-2
 # swapped 0.60 to 0.68 (checked under both); down served from its native
 # base 8.8e-2 to 1.1e-1 (checked under int8, too close to NF4's sound
 # readings there); wk/wv from their native base 3.8e-2 to 8.8e-2
-# (reported only)
+# (reported only).  granite_moe_1b_a400m under its twin with int8 KV:
+# sound 2.7e-2 to 3.1e-2; the down experts' adapter term dropped 0.10 to
+# 0.11, one layer routing to top_i + 1 0.37 to 0.45
 QROUTE_TOL = {"int8": 5e-2, "nf4": 1e-1}
 # the same check for the masked-dense plan whose decode serves wo/down
 # from their NF4 twins (nf4_spmm + fused_lora; native KV, so both routes
@@ -122,6 +148,9 @@ R_CAT = 128                                      # LoRA 64 + residual 64
 # the main path's requests: prompts sharing a 64-token prefix, new tokens
 # per request, the continuous engine's slots
 N_REQ, PROMPT_LEN, GEN_LEN, N_SLOTS = 8, 128, 32, 4
+# the continuous engine's slots on granite_moe_1b_a400m: at 8 its decode
+# tick runs the decode-grid expert kernels (the crossover's 8-256 band)
+MOE_SLOTS = 8
 
 
 def fail(msg: str) -> None:
@@ -197,13 +226,15 @@ def device_us(torch, prof, by_name: dict = None, counts: dict = None) -> float:
 
 
 def _row_line(row: dict) -> str:
-    shape = " ".join(f"{k}={row[k]}" for k in ("layer", "M", "K", "N_pad", "tile", "cap_t",
+    shape = " ".join(f"{k}={row[k]}" for k in ("layer", "tokens", "M", "K", "N_pad", "tile",
+                                                "cap_t",
                                                 "B", "live_positions") if k in row)
     fault = "".join(f" ({what}: {row[key]:.2e})"
                     for what, key in (("unrounded u", "unrounded_u_rel_l2"),
                                       ("unrounded values", "unrounded_values_rel_l2"),
                                       ("unrounded weight", "unrounded_weight_rel_l2"),
-                                      ("inclusive popcount", "inclusive_popcount_rel_l2"))
+                                      ("inclusive popcount", "inclusive_popcount_rel_l2"),
+                                      ("neighbour expert", "neighbour_expert_rel_l2"))
                     if key in row)
     times = " ".join(f"{k} {row[k]:.5f}" for k in ("ms", "plain_ms", "library_ms",
                                                      "bound_ms") if k in row)
@@ -559,6 +590,240 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
     return summary
 
 
+# granite_moe_1b_a400m's expert stacks: (K, N) of gate/up and of down
+MOE_SHAPES = {"gate/up": (1024, 512), "down": (512, 1024)}
+MOE_EXPERTS, MOE_TOPK = 32, 8
+MOE_KERNELS = ("grouped_salr_spmm", "grouped_qsalr_spmm", "decode_salr_spmm",
+               "decode_qsalr_spmm")
+
+
+def _moe_cost(torch, stack, row_e, k: int, n: int, r: int, es: int) -> tuple:
+    """(bytes, flops) the expert-stack op needs for these rows: x and y
+    rows, and for each expert a row uses, its words, its stored nonzeros
+    (NF4: half a byte each plus an f32 scale per cell) and its A_cat /
+    B_cat at the logical width; flops 2 per stored nonzero per row of its
+    expert, plus the adapter products."""
+    from repro_torch.core import bitmap as bm
+
+    n_exp, wpt = stack.words.shape[0], stack.words.shape[-1]
+    nnz = bm.unpack_bits(stack.words.reshape(-1, wpt), wpt * 32).reshape(n_exp, -1).sum(1)
+    rows_of = torch.bincount(row_e[row_e >= 0].long(), minlength=n_exp)
+    used = rows_of > 0
+    a = int(rows_of.sum())
+    quant = hasattr(stack, "codes")
+    per_expert = (stack.words[0].numel() * 4 + (k * r + r * n) * es
+                  + (stack.scales[0].numel() * 4 if quant else 0))
+    value_bytes = nnz.double() / 2 if quant else nnz.double() * es
+    nbytes = (a * (k + n) * es + int(used.sum()) * per_expert
+              + float(value_bytes[used].sum()))
+    flops = 2 * float((rows_of.double() * nnz.double()).sum()) + 2 * a * r * (k + n)
+    return nbytes, flops
+
+
+def moe_checks(torch, timer, gen, rows: list) -> dict:
+    """The four expert-stack kernels vs their plain versions at
+    granite_moe_1b_a400m's expert shapes (E 32, top-8, R 128), at the rows
+    the main path gives them: grouped at 64 assignment rows (8 tokens,
+    block_m 8, 288 grouped rows) and 8192 (greedy_generate's prefill of
+    8 x 128 tokens, block_m 128, 12288 rows); decode at 64 rows (the
+    engine's 8 slots) and 1024 (an engine prefill bucket of 128).  The
+    bf16 limit must reject two planted faults: u left unrounded, and one
+    tile (decode: one expert's rows) reading its neighbour expert's
+    weights.  Exact checks: grouped and decode bitwise equal per row on the
+    same assignments; a row bitwise the same among 1, 4, 8, 33 and 128
+    tokens; decode pad rows (-1) exactly zero with NaN in their x rows,
+    grouped pad rows exactly zero from zero x, NaN there leaving every
+    real row unchanged.  Each is timed beside its plain version and
+    ``torch.nn.functional.grouped_mm`` over the merged weights
+    W_hat + A_cat B_cat (rows sorted by expert beforehand).  The plain
+    versions loop over the experts with a host sync each; their traces are
+    so long that they are timed over 3 calls in one trace."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import salr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+
+    n_exp, topk = MOE_EXPERTS, MOE_TOPK
+    plain_timer = Timer(torch, iters=3, traces=1)
+    summary = {name: {"max_abs_err": 0.0} for name in MOE_KERNELS}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for lname, (k, n) in MOE_SHAPES.items():
+            w = torch.randn((n_exp, k, n), generator=gen, device="cuda") / math.sqrt(k)
+            flat, _ = salr._tiled_encode(w.reshape(n_exp * k, n).to(dt),
+                                         salr.SALRConfig(dtype=dtype_name))
+            tbw = bm.TiledBitmapWeight(
+                words=flat.words.reshape(n_exp, k, *flat.words.shape[1:]),
+                values=flat.values.reshape(n_exp, k, *flat.values.shape[1:]),
+                cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
+            q, _ = bm.tile_quantize_nf4(tbw)
+            a = (torch.randn((n_exp, k, R_CAT), generator=gen, device="cuda")
+                 / math.sqrt(k)).to(dt)
+            b = (torch.randn((n_exp, R_CAT, n), generator=gen, device="cuda")
+                 / math.sqrt(R_CAT)).to(dt)
+            stacks = {"salr": tbw, "qsalr": q}
+            # the yardstick's weights, merged and decoded ahead: (E, K, N),
+            # column-major as grouped_mm takes them
+            merged = {}
+            if dtype_name == "bfloat16":
+                for kind, st in stacks.items():
+                    dense = torch.stack([
+                        (bm.qtile_decode(ref._expert(st, e), dtype=dt) if kind == "qsalr"
+                         else bm.tile_decode(ref._expert(st, e))).float()
+                        + a[e].float() @ b[e].float() for e in range(n_exp)]).to(dt)
+                    merged[kind] = dense.transpose(1, 2).contiguous().transpose(1, 2)
+            for n_tok in (8, 128, 1024):
+                x = (torch.randn((n_tok, k), generator=gen, device="cuda") / 4).to(dt)
+                top_i = torch.rand((n_tok, n_exp), generator=gen,
+                                   device="cuda").argsort(dim=1)[:, :topk]
+                n_as = n_tok * topk
+                row_e = top_i.reshape(-1).to(torch.int32)
+                g = moe.group_assignments(top_i, n_exp, moe._group_block_m(n_as, n_exp))
+                xs = x.new_zeros((g.m_pad, k))
+                xs.index_copy_(0, g.dst, x.index_select(0, g.tok))
+                xd = x.repeat_interleave(topk, dim=0)
+                back = g.dst[g.inv]                       # grouped row of each assignment
+                for kind, st in stacks.items():
+                    routes = {"grouped": (xs, g.tile_expert), "decode": (xd, row_e)}
+                    outs = {}
+                    for route, (xr, emap) in routes.items():
+                        name = f"{route}_{kind}_spmm"
+                        op = getattr(ops, f"{route}_{kind}_matmul")
+                        plain_fn = getattr(ref, f"{name}_ref")
+                        kw = {"block_m": g.block_m} if route == "grouped" else {}
+
+                        def kern(op=op, xr=xr, emap=emap, st=st, kw=kw):
+                            return op(xr, emap, st, a, b, **kw)
+
+                        def plain(plain_fn=plain_fn, xr=xr, emap=emap, st=st, kw=kw):
+                            return plain_fn(xr, emap, st, a, b, **kw)
+                        outs[route] = y = kern()
+                        if not ((route == "grouped" and n_tok in (8, 1024))
+                                or (route == "decode" and n_tok in (8, 128))):
+                            continue                # a shape the main path does not give
+                        y_ref = plain()
+                        torch.cuda.synchronize()
+                        err = rel_l2(torch, y, y_ref)
+                        abs_err = (y.float() - y_ref.float()).abs().max().item()
+                        if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
+                            fail(f"{name} {dtype_name} {lname} rows={xr.shape[0]}: rel-L2 "
+                                 f"{err:.3e} > {TOL[dtype_name]:.0e}")
+                        s = summary[name]
+                        s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+                        nbytes, flops = _moe_cost(torch, st, row_e, k, n, R_CAT,
+                                                  y.element_size())
+                        bound, by = _bound(nbytes, flops, dtype_name)
+                        row = {"kernel": name, "dtype": dtype_name, "layer": lname,
+                               "tokens": n_tok, "M": xr.shape[0], "K": k, "N_pad": st.cols,
+                               "tile": st.tile, "cap_t": st.cap_t, "rel_l2": err,
+                               "max_abs_err": abs_err, "bytes": nbytes, "flops": flops,
+                               "bound_ms": bound, "bound_by": by}
+                        if dtype_name == "bfloat16":
+                            _moe_faults(torch, row, name, route, plain_fn, xr, emap, st, a, b,
+                                        kw, y_ref, n_exp)
+                            order = row_e.long().argsort(stable=True)
+                            xsort = xd.index_select(0, order)
+                            offs = torch.cumsum(torch.bincount(row_e.long(), minlength=n_exp),
+                                                0).to(torch.int32)
+                            library = _grouped_mm_call(torch, xsort, merged[kind], offs)
+                            row.update(ms=timer.ms(kern), plain_ms=plain_timer.ms(plain),
+                                       library_ms=(timer.ms(library) if library else None))
+                            if lname == "gate/up" and n_tok == 8:
+                                s.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                                 "bound_ms", "bound_by")})
+                                s["shape"] = (f"bf16 8 tokens x top-8 = 64 rows, E=32 K=1024 "
+                                              f"N=512 R=128 tile=256 cap_t={st.cap_t}")
+                        rows.append(row)
+                        print(_row_line(row))
+                    # grouped == decode, bitwise, per assignment row
+                    if not torch.equal(outs["grouped"][back], outs["decode"]):
+                        fail(f"{kind} {dtype_name} {lname} {n_tok} tokens: grouped and decode "
+                             "rows differ")
+                    if n_tok == 128:
+                        _moe_row_invariance(torch, moe, ops, kind, st, a, b, x, top_i,
+                                            outs["decode"], f"{dtype_name} {lname}")
+                    if n_tok == 8:
+                        _moe_pad_rows(torch, ops, kind, st, a, b, xs, g, xd, row_e, outs,
+                                      f"{dtype_name} {lname}")
+    print("phase 2: expert-stack kernels: grouped == decode bitwise per row, rows "
+          "independent of the token count, pad rows exactly zero")
+    return summary
+
+
+def _grouped_mm_call(torch, xsort, w_merged, offs):
+    """One grouped_mm call over expert-sorted rows, or None (printed) where
+    this torch has none or refuses the shapes."""
+    fn = getattr(torch.nn.functional, "grouped_mm", None)
+    if fn is None:
+        print("phase 2: torch.nn.functional.grouped_mm is missing: no library time")
+        return None
+    try:
+        fn(xsort, w_merged, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError) as exc:
+        print(f"phase 2: grouped_mm refused the call ({exc}): no library time")
+        return None
+    return lambda: fn(xsort, w_merged, offs=offs)
+
+
+def _moe_faults(torch, row, name, route, plain_fn, xr, emap, st, a, b, kw, y_ref, n_exp):
+    """Two planted faults the bf16 limit must reject: u left unrounded
+    (B_cat handed over in f32), and one tile (decode: the rows of one
+    expert) reading its neighbour expert's weights."""
+    unrounded = plain_fn(xr, emap, st, a, b.float(), **kw).to(y_ref.dtype)
+    moved = emap.clone()
+    if route == "grouped":
+        moved[0] = (moved[0] + 1) % n_exp           # the first tile holds real rows
+    else:
+        moved[emap == emap[0]] = (emap[0] + 1) % n_exp
+    neighbour = plain_fn(xr, moved, st, a, b, **kw)
+    for key, fault in (("unrounded_u_rel_l2", unrounded),
+                       ("neighbour_expert_rel_l2", neighbour)):
+        err = rel_l2(torch, fault, y_ref)
+        row[key] = err
+        if not err > TOL["bfloat16"]:
+            fail(f"bf16 limit {TOL['bfloat16']:.0e} does not reject the planted {name} "
+                 f"fault {key} at rows={xr.shape[0]} (rel-L2 {err:.3e})")
+
+
+def _moe_row_invariance(torch, moe, ops, kind, st, a, b, x, top_i, full, label):
+    """Each token's rows from its first-n-token subset equal the
+    128-token call's, bitwise, on both routes, for n in 1, 4, 8, 33."""
+    n_exp, topk = MOE_EXPERTS, MOE_TOPK
+    for n_sub in (1, 4, 8, 33):
+        xsub, tsub = x[:n_sub], top_i[:n_sub]
+        n_as = n_sub * topk
+        dec = getattr(ops, f"decode_{kind}_matmul")(
+            xsub.repeat_interleave(topk, dim=0), tsub.reshape(-1).to(torch.int32), st, a, b)
+        g = moe.group_assignments(tsub, n_exp, moe._group_block_m(n_as, n_exp))
+        xs = xsub.new_zeros((g.m_pad, xsub.shape[1]))
+        xs.index_copy_(0, g.dst, xsub.index_select(0, g.tok))
+        grp = getattr(ops, f"grouped_{kind}_matmul")(xs, g.tile_expert, st, a, b,
+                                                     block_m=g.block_m)[g.dst[g.inv]]
+        if not (torch.equal(dec, full[:n_as]) and torch.equal(grp, full[:n_as])):
+            fail(f"{kind} {label}: rows at {n_sub} tokens differ from the 128-token call")
+
+
+def _moe_pad_rows(torch, ops, kind, st, a, b, xs, g, xd, row_e, outs, label):
+    """Decode: 8 pad rows past the map hold NaN, come out exactly zero, and
+    the real rows do not change.  Grouped: pad rows (zero x) come out
+    exactly zero; NaN put there leaves every real row unchanged."""
+    nan_rows = torch.full((8, xd.shape[1]), float("nan"), dtype=xd.dtype, device=xd.device)
+    dec = getattr(ops, f"decode_{kind}_matmul")(torch.cat([xd, nan_rows]), row_e, st, a, b)
+    if dec[xd.shape[0]:].count_nonzero() or not torch.equal(dec[:xd.shape[0]], outs["decode"]):
+        fail(f"decode_{kind}_spmm {label}: NaN pad rows not exactly zero or leaked")
+    pad = torch.ones(xs.shape[0], dtype=torch.bool, device=xs.device)
+    pad[g.dst] = False
+    if outs["grouped"][pad].count_nonzero():
+        fail(f"grouped_{kind}_spmm {label}: zero pad rows not exactly zero")
+    junk = xs.clone()
+    junk[pad] = float("nan")
+    grp = getattr(ops, f"grouped_{kind}_matmul")(junk, g.tile_expert, st, a, b,
+                                                 block_m=g.block_m)
+    if not torch.equal(grp[~pad], outs["grouped"][~pad]):
+        fail(f"grouped_{kind}_spmm {label}: NaN in pad rows changed a real row")
+
+
 QUANT_ATTENTION = ("ring_quant_gqa_attention", "paged_quant_gqa_attention",
                    "ring_nf4_gqa_attention", "paged_nf4_gqa_attention")
 
@@ -803,10 +1068,13 @@ def check_parity(label: str, report: list, n_req: int) -> None:
           f"greedy_generate exactly, {len(report)} diverge at near-ties")
 
 
-def serve_both(torch, cfg, params, prompts, gen_len: int, n_slots: int, plan) -> tuple:
-    """Both engines over ``prompts`` under ``plan``, the launch counts set
-    to 0 just before and read just after.  Returns (greedy tokens, batch
-    seconds, engine, results, metrics, launch counts, peak device bytes)."""
+def serve_both(torch, cfg, params, prompts, gen_len: int, n_slots: int, plan,
+               engine_plan="same") -> tuple:
+    """Both engines over ``prompts``, greedy_generate under ``plan`` and the
+    continuous engine under ``engine_plan`` (``"same"``: ``plan``; None: the
+    engine resolves its own), the launch counts set to 0 just before and
+    read just after.  Returns (greedy tokens, batch seconds, engine,
+    results, metrics, launch counts, peak device bytes)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
@@ -815,8 +1083,9 @@ def serve_both(torch, cfg, params, prompts, gen_len: int, n_slots: int, plan) ->
     ops.reset_launches()
     with torch.inference_mode():
         greedy, batch_s = serve.run_batch(cfg, params, prompts, gen_len, len(prompts), plan)
-        eng, results, metrics = serve.run_continuous(cfg, params, prompts, gen_len,
-                                                     n_slots, plan=plan)
+        eng, results, metrics = serve.run_continuous(
+            cfg, params, prompts, gen_len, n_slots,
+            plan=plan if engine_plan == "same" else engine_plan)
         torch.cuda.synchronize()
     return (greedy, batch_s, eng, results, metrics, dict(ops.LAUNCHES),
             torch.cuda.max_memory_allocated())
@@ -954,6 +1223,139 @@ def mask_nf4_path(torch, dev, seed: int, prompts, rows: list) -> tuple:
     return label, counts, expected, per_step
 
 
+def granite_paths(torch, dev, seed: int, rows: list) -> list:
+    """Serve granite_moe_1b_a400m at full width (24 layers, 32 experts,
+    top-8), compressed once on the GPU from seeded weights with the NF4
+    twin of every projection and expert stack; the same 8 requests as the
+    smollm runs, under the native plan, then decode from the NF4 twin with
+    int8 decode KV (prefill native).  greedy_generate keeps its own plan
+    (prefill at 4096 tokens and decode at 1: the grouped kernels); the
+    continuous engine resolves its own at 8 slots and its largest bucket
+    (160: the decode-grid kernels), so engine vs greedy crosses the two
+    MoE routes.  Returns (path, launch counts, launches expected,
+    launches per decode step) for each run."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import execplan, salr
+    from repro_torch.launch import serve
+
+    cfg = configs.get("granite_moe_1b_a400m")
+    cfg = cfg.with_(salr=dataclasses.replace(cfg.salr, dual_repr=True))
+    params, init_s = serve.build_params(cfg, seed, dev)
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    twin = sum(t.numel() * t.element_size() for lp in params["layers"]
+               for part in ("mixer", "moe") for lin in lp[part].values()
+               if isinstance(lin, salr.SALRLinear) for t in (lin.qbase.codes, lin.qbase.scales))
+    print(f"phase 3: compressed {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts, top-{cfg.experts_per_token}) with the NF4 twin on {dev} "
+          f"in {init_s:.2f}s; parameter bytes {nbytes}, of which NF4 codes and scales {twin}")
+    prompts = serve.request_prompts(cfg, N_REQ, PROMPT_LEN, seed, shared_prefix=64)
+    n_layers = cfg.n_layers
+    faults = {   # planted faults: the adapter term of every down expert dropped; one
+                 # layer's router picking (top_i + 1) % E
+        "down experts' adapter term dropped": drop_adapters(torch, params, ("down",),
+                                                            part="moe"),
+        "layer 0 routes to top_i + 1": roll_router(torch, params, 0),
+    }
+    out = []
+    for label, qcfg in (("granite native", cfg),
+                        ("granite bitmap_nf4 + int8 KV", cfg.with_(
+                            decode_kv_cache="int8",
+                            salr=dataclasses.replace(cfg.salr, decode_repr="bitmap_nf4")))):
+        quant = qcfg is not cfg
+        plan = execplan.resolve_plan(qcfg)
+        greedy, batch_s, eng, results, metrics, counts, peak = serve_both(
+            torch, qcfg, params, prompts, GEN_LEN, MOE_SLOTS, plan, engine_plan=None)
+        steps, ticks, prefills = GEN_LEN - 1, metrics["n_decode_ticks"], metrics["n_prefills"]
+        routes = {ph: (plan.moe_route(ph), eng.plan.moe_route(ph)) for ph in ("prefill", "decode")}
+        if routes != {"prefill": ("grouped", "decode_grid"), "decode": ("grouped", "decode_grid")}:
+            fail(f"{label}: MoE routes (greedy, engine) {routes}")
+        # per forward: 4 attention projections (salr_spmm, the twin's
+        # qsalr_spmm at a quantized decode) and 3 expert stacks per layer
+        # (greedy: grouped; the engine: decode grid); one decode attention
+        # per layer and decode step (greedy: the int8 ring under the twin
+        # plan, plain attention under the native one; the engine: paged)
+        q = "q" if quant else ""
+        expected = dict.fromkeys(counts, 0)
+        expected.update({"salr_spmm": 4 * n_layers * (1 + prefills),
+                         "grouped_salr_spmm": 3 * n_layers,
+                         "decode_salr_spmm": 3 * n_layers * prefills})
+        expected[q + "salr_spmm"] += 4 * n_layers * (steps + ticks)
+        expected[f"grouped_{q}salr_spmm"] += 3 * n_layers * steps
+        expected[f"decode_{q}salr_spmm"] += 3 * n_layers * ticks
+        if quant:
+            expected.update({"ring_quant_gqa_attention": n_layers * steps,
+                             "paged_quant_gqa_attention": n_layers * ticks})
+        else:
+            expected["paged_gqa_attention"] = n_layers * ticks
+        print(f"phase 3: {label}: greedy_generate {serve.route_line(qcfg, plan)}")
+        print(f"phase 3: {label}: continuous engine ({MOE_SLOTS} slots) "
+              f"{serve.route_line(qcfg, eng.plan)}")
+        print(_engine_line(label, greedy, batch_s, metrics, peak))
+        check_tokens(label, cfg, greedy, results, N_REQ, GEN_LEN)
+        with torch.inference_mode():
+            report = serve.parity_report(qcfg, params, prompts, greedy, results, plan)
+        check_parity(label, report, N_REQ)
+        row = {"main_path": label, "batch_tokens": int(greedy.size), "batch_s": batch_s,
+               "engine": {k: v for k, v in metrics.items() if k != "plan"},
+               "engine_plan": eng.plan.describe(), "peak_bytes": peak, "param_bytes": nbytes,
+               "nf4_twin_bytes": twin, "compress_s": init_s, "launches": counts,
+               "divergences": report}
+        if quant:
+            err, errs = decode_route_check(torch, qcfg, params, prompts, greedy, plan, label,
+                                           QROUTE_TOL["int8"],
+                                           {k: (fp, True) for k, fp in faults.items()})
+            row.update(decode_kernel_vs_reference_rel_l2=err, decode_planted_faults_rel_l2=errs)
+        else:
+            err, errs = prefill_route_check(torch, qcfg, params, prompts, plan, label, faults)
+            row.update(kernel_vs_reference_rel_l2=err, planted_faults_rel_l2=errs)
+        row["decode_tick"] = tick_profile(torch, eng, prompts)
+        rows.append(row)
+        per_step = {f"grouped_{q}salr_spmm per greedy step": 3 * n_layers,
+                    f"decode_{q}salr_spmm per engine tick": 3 * n_layers,
+                    f"{q}salr_spmm per decode step": 4 * n_layers}
+        out.append((label, counts, expected, per_step))
+    return out
+
+
+def prefill_route_check(torch, cfg, params, prompts, plan, label: str, faults: dict) -> tuple:
+    """Prefill logits of 2 prompts, kernel route vs reference route, within
+    ``ROUTE_TOL``; every planted fault (params) on the kernel route beyond
+    it.  Returns (rel-L2, {fault: rel-L2})."""
+    from repro_torch.core import execplan
+    from repro_torch.models import model as M
+
+    pt = torch.from_numpy(prompts[:2]).to(M.params_device(params))
+    with torch.inference_mode():
+        lk, _ = M.prefill(params, cfg, pt, plan=plan)
+        lr, _ = M.prefill(params, cfg, pt, plan=execplan.resolve_plan(cfg, backend="reference"))
+        errs = {k: rel_l2(torch, M.prefill(fp, cfg, pt, plan=plan)[0], lr)
+                for k, fp in faults.items()}
+    if not torch.isfinite(lk).all() or not torch.isfinite(lr).all():
+        fail(f"{label}: prefill logits not finite")
+    err = rel_l2(torch, lk, lr)
+    print(f"phase 3: {label}: prefill logits, kernel route vs reference route: rel-L2 {err:.4e} "
+          f"(limit {ROUTE_TOL:.0e}); planted faults: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in errs.items()))
+    if not err <= ROUTE_TOL:
+        fail(f"{label}: kernel route strays from the reference formulation: rel-L2 {err:.3e}")
+    if not min(errs.values()) > ROUTE_TOL:
+        fail(f"{label}: route limit {ROUTE_TOL:.0e} does not reject every planted fault")
+    return err, errs
+
+
+def roll_router(torch, params, layer: int):
+    """A copy of ``params`` whose MoE router in ``layer`` has its expert
+    columns rolled by one, so every token there routes to (top_i + 1) % E
+    with the same weights."""
+    layers = list(params["layers"])
+    lp = dict(layers[layer])
+    lp["moe"] = {**lp["moe"], "router": {"w": torch.roll(lp["moe"]["router"]["w"], 1, dims=1)}}
+    layers[layer] = lp
+    return {**params, "layers": layers}
+
+
 def quant_path(torch, dev, cfg, params, prompts, gen_len: int, n_slots: int, kv: str,
                native_greedy, native_results, rows: list) -> tuple:
     """Serve the same requests under a mixed-precision plan: decode
@@ -1082,11 +1484,12 @@ def decode_route_check(torch, cfg, params, prompts, greedy, plan, label: str, to
 PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
-def edit_linears(params, names: tuple, layers, edit):
-    """A copy of ``params`` in which each projection ``names`` of each
-    layer in ``layers`` gets the fields ``edit(lin, other)`` returns
-    (a dict): ``lin`` is the projection, ``other`` the same projection of
-    the layer ``layers`` lists next (cyclically)."""
+def edit_linears(params, names: tuple, layers, edit, parts=("mixer", "mlp")):
+    """A copy of ``params`` in which each projection ``names`` (under the
+    layer keys ``parts``) of each layer in ``layers`` gets the fields
+    ``edit(lin, other)`` returns (a dict): ``lin`` is the projection,
+    ``other`` the same projection of the layer ``layers`` lists next
+    (cyclically)."""
     import dataclasses
 
     layers = list(layers)
@@ -1094,22 +1497,24 @@ def edit_linears(params, names: tuple, layers, edit):
     out = [{k: dict(v) if isinstance(v, dict) else v for k, v in lp.items()} for lp in src]
     for i, l in enumerate(layers):
         o = layers[(i + 1) % len(layers)]
-        for part in ("mixer", "mlp"):
+        for part in parts:
             for name in set(names) & set(src[l][part]):
                 lin = src[l][part][name]
                 out[l][part][name] = dataclasses.replace(lin, **edit(lin, src[o][part][name]))
     return {**params, "layers": out}
 
 
-def drop_adapters(torch, params, names: tuple):
-    """A copy of ``params`` in which projections ``names`` of every layer
-    lose their adapter term (LoRA and residual B set to zero)."""
+def drop_adapters(torch, params, names: tuple, part=None):
+    """A copy of ``params`` in which projections ``names`` (expert stacks
+    with ``part="moe"``) of every layer lose their adapter term (LoRA and
+    residual B set to zero)."""
     import dataclasses
 
     def drop(ad):
         return None if ad is None else dataclasses.replace(ad, b=torch.zeros_like(ad.b))
     return edit_linears(params, names, range(len(params["layers"])),
-                        lambda lin, _: {"lora": drop(lin.lora), "res": drop(lin.res)})
+                        lambda lin, _: {"lora": drop(lin.lora), "res": drop(lin.res)},
+                        **({"parts": (part,)} if part else {}))
 
 
 def tick_profile(torch, eng, prompts) -> dict:
@@ -1123,7 +1528,9 @@ def tick_profile(torch, eng, prompts) -> dict:
 
     from repro_torch.launch.engine import Request
 
-    n_slots, n, windows = eng.ecfg.n_slots, 6, 3
+    n_slots, windows = eng.ecfg.n_slots, 3
+    # ticks per window: 6, or what the context leaves beside the admissions
+    n = min(6, (eng.ecfg.max_ctx - len(prompts[0]) - n_slots - 1) // (windows + 1))
     eng.reset()
     for i in range(n_slots):
         eng.submit(Request(rid=i, prompt=tuple(int(t) for t in prompts[i]),
@@ -1151,8 +1558,11 @@ def tick_profile(torch, eng, prompts) -> dict:
     by_name = best[1]
     busy_ms = sum(by_name.values()) / n / 1e3
     # salr_spmm.cu's two ops share kernel names; the NF4 loader in the
-    # template arguments marks qsalr_spmm's, so it is matched first
-    families = {"qsalr_spmm": ("NF4Values",),
+    # template arguments marks qsalr_spmm's, so it is matched first (after
+    # the expert kernels, whose row map names them)
+    families = {"grouped expert kernels": ("TileMap",),
+                "decode-grid expert kernels": ("RowMap",),
+                "qsalr_spmm": ("NF4Values",),
                 "salr_spmm": ("salr_spmm_kernel", "adapter_u_kernel"),
                 "nm_spmm": ("nm_spmm_kernel",),
                 "fused_lora": ("fused_lora_kernel",),
@@ -1227,11 +1637,17 @@ def main(argv=None) -> int:
         qsalr = qsalr_checks(torch, timer, gen, rows)
         quant_att = quant_attention_checks(torch, timer, gen, rows)
         methods = method_checks(torch, timer, gen, rows)
-    print("phase 2: every kernel agrees with its plain version")
+        moe_k = moe_checks(torch, timer, gen, rows)
+    print(f"phase 2: every kernel agrees with its plain version "
+          f"({time.perf_counter() - t_start:.1f}s)")
 
     paths = main_path(torch, torch.device("cuda"), args.seed, rows)
     gc.collect()                  # the bitmap model goes before the next two
     paths += method_paths(torch, torch.device("cuda"), args.seed, rows)
+    gc.collect()
+    print(f"phase 3: smollm_135m runs done ({time.perf_counter() - t_start:.1f}s)")
+    paths += granite_paths(torch, torch.device("cuda"), args.seed, rows)
+    print(f"phase 3: granite_moe_1b_a400m runs done ({time.perf_counter() - t_start:.1f}s)")
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     for path, counts, expected, per_step in paths:
         for name, n in counts.items():
@@ -1263,7 +1679,11 @@ def main(argv=None) -> int:
                          methods[name])
                   for name, rep in (("nm_spmm", "nm_spmm.py:59"),
                                     ("fused_lora", "fused_lora.py:43"),
-                                    ("nf4_spmm", "nf4_spmm.py:49"))}}
+                                    ("nf4_spmm", "nf4_spmm.py:49"))},
+               **{name: ("src/repro_torch/csrc/grouped_spmm.cu",
+                         f"src/repro/kernels/grouped_spmm.py:{line}", moe_k[name])
+                  for name, line in (("grouped_salr_spmm", 281), ("grouped_qsalr_spmm", 313),
+                                     ("decode_salr_spmm", 578), ("decode_qsalr_spmm", 605))}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

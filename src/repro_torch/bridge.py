@@ -45,7 +45,7 @@ def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device,
 
     if key + ".base.words" in flat:         # tiled bitmap: logical orientation
         words, values = leaf(".base.words"), leaf(".base.values")
-        n_tiles, wpt = words.shape[1], words.shape[2]
+        n_tiles, wpt = words.shape[-2], words.shape[-1]
         base = TiledBitmapWeight(words=words, values=values, cols=n_tiles * wpt * 32,
                                  tile=wpt * 32, cap_t=values.shape[-1])
         transposed = False
@@ -69,9 +69,9 @@ def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device,
         codes = leaf(".qbase.codes")
         qbase = QDenseWeight(codes=codes, scales=leaf(".qbase.scales"),
                              shape=(codes.shape[0], d_out))
-    if lora.b.shape[1] != d_out:
-        raise ValueError(f"{key}: adapter width {lora.b.shape[1]} != d_out {d_out}")
-    return SALRLinear(base=base, lora=lora, res=res, bias=bias, d_in=lora.a.shape[0],
+    if lora.b.shape[-1] != d_out:
+        raise ValueError(f"{key}: adapter width {lora.b.shape[-1]} != d_out {d_out}")
+    return SALRLinear(base=base, lora=lora, res=res, bias=bias, d_in=lora.a.shape[-2],
                       d_out=d_out, transposed=transposed, backend=cfg.salr.backend,
                       qbase=qbase)
 
@@ -86,12 +86,17 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     (``.base``) are carried too, a flat base of a projection in
     ``TRANSPOSED`` as the W^T it stores.  A layer's NF4 twin is carried
     when the reference emitted one: ``.qbase.words/codes/scales`` for a
-    tiled base, ``.qbase.codes/scales`` (a QDenseWeight) for a dense one."""
+    tiled base, ``.qbase.codes/scales`` (a QDenseWeight) for a dense one.
+    An MoE layer's ``['moe']`` leaves are carried as one layer of
+    ``{"mixer", "moe"}``: its norm, the f32 router and the gate/up/down
+    expert stacks, whose leaves keep their expert axis after the repeats
+    axis is taken off (twins included)."""
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
-    widths = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,
-              "wv": cfg.n_kv_heads * hd, "wo": cfg.d_model,
-              "gate": cfg.d_ff, "up": cfg.d_ff, "down": cfg.d_model}
+    widths = {"mixer": {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,
+                        "wv": cfg.n_kv_heads * hd, "wo": cfg.d_model},
+              "mlp": {"gate": cfg.d_ff, "up": cfg.d_ff, "down": cfg.d_model},
+              "moe": {"gate": cfg.moe_d_ff, "up": cfg.moe_d_ff, "down": cfg.d_model}}
     layers = []
     for gi, g in enumerate(cfg.layer_groups):
         for r in range(g.repeats):
@@ -102,15 +107,22 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
 
                 def lin(sub, name, pre=pre, r=r):
                     return _linear(flat, f"{pre}['{sub}']['{name}']", r,
-                                   widths[name], cfg, dev, name in TRANSPOSED)
+                                   widths[sub][name], cfg, dev, name in TRANSPOSED)
 
-                layers.append({
-                    "mixer": {"norm": {"scale": to_tensor(
-                                  flat[pre + "['mixer']['norm']['scale']"][r], dev)},
-                              **{n: lin("mixer", n) for n in ("wq", "wk", "wv", "wo")}},
-                    "mlp_norm": {"scale": to_tensor(flat[pre + "['mlp_norm']['scale']"][r],
-                                                    dev)},
-                    "mlp": {n: lin("mlp", n) for n in ("gate", "up", "down")}})
+                def norm(path, pre=pre, r=r):
+                    return {"scale": to_tensor(flat[f"{pre}{path}['scale']"][r], dev)}
+
+                layer = {"mixer": {"norm": norm("['mixer']['norm']"),
+                                   **{n: lin("mixer", n) for n in ("wq", "wk", "wv", "wo")}}}
+                if pre + "['moe']['router']['w']" in flat:
+                    layer["moe"] = {
+                        "norm": norm("['moe']['norm']"),
+                        "router": {"w": to_tensor(flat[pre + "['moe']['router']['w']"][r], dev)},
+                        **{n: lin("moe", n) for n in ("gate", "up", "down")}}
+                else:
+                    layer.update(mlp_norm=norm("['mlp_norm']"),
+                                 mlp={n: lin("mlp", n) for n in ("gate", "up", "down")})
+                layers.append(layer)
     return {"embed": {"table": to_tensor(flat["['embed']['table']"], dev)},
             "layers": layers,
             "final_norm": {"scale": to_tensor(flat["['final_norm']['scale']"], dev)},

@@ -1,9 +1,9 @@
 """Architecture / shape / SALR configuration dataclasses and registry.
 
 The port's own copy of ``repro.configs.base`` (the port imports nothing
-of the reference package).  Only the dense-decoder fields this slice
-serves are live; the rest are kept so the copy stays field-for-field
-equal to the reference (a CPU test pins that).
+of the reference package).  Only the fields of the dense and MoE
+decoders served so far are live; the rest are kept so the copy stays
+field-for-field equal to the reference (a CPU test pins that).
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ SHAPES = {
 _REGISTRY: dict = {}
 
 # archs ported so far (the reference registers eleven)
-PORTED = ["smollm_135m"]
+PORTED = ["smollm_135m", "granite_moe_1b_a400m"]
 
 
 def register(name: str, config: ArchConfig, smoke: ArchConfig) -> None:

@@ -104,20 +104,22 @@ def decode(bw: BitmapWeight) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class TiledBitmapWeight:
     """Bitmap matrix tiled along columns: each (row, column-tile) cell
-    stores its own compact value segment of static capacity ``cap_t``."""
-    words: torch.Tensor     # int32 (rows, n_tiles, tile//32)
-    values: torch.Tensor    # (rows, n_tiles, cap_t)
+    stores its own compact value segment of static capacity ``cap_t``.
+    An expert stack carries a leading E axis on both leaves (all experts
+    share ``tile`` and ``cap_t``)."""
+    words: torch.Tensor     # int32 ([E,] rows, n_tiles, tile//32)
+    values: torch.Tensor    # ([E,] rows, n_tiles, cap_t)
     cols: int
     tile: int
     cap_t: int
 
     @property
     def rows(self) -> int:
-        return self.words.shape[0]
+        return self.words.shape[-3]
 
     @property
     def n_tiles(self) -> int:
-        return self.words.shape[1]
+        return self.words.shape[-2]
 
 
 def tiled_capacity(tile: int, p: float, slack_sigmas: float = 4.0,
@@ -151,41 +153,42 @@ def tile_encode(w_hat: torch.Tensor, mask: torch.Tensor, tile: int, cap_t: int):
 
 
 def tile_decode(tbw: TiledBitmapWeight) -> torch.Tensor:
-    """Dense (rows, cols) decode of the tiled format."""
-    rows, n_tiles = tbw.rows, tbw.n_tiles
-    bw = BitmapWeight(words=tbw.words.reshape(rows * n_tiles, tbw.tile // 32),
-                      values=tbw.values.reshape(rows * n_tiles, tbw.cap_t),
+    """Dense ([E,] rows, cols) decode of the tiled format."""
+    lead = tbw.words.shape[:-2]                   # ([E,] rows)
+    cells = tbw.words.numel() // (tbw.tile // 32)
+    bw = BitmapWeight(words=tbw.words.reshape(cells, tbw.tile // 32),
+                      values=tbw.values.reshape(cells, tbw.cap_t),
                       cols=tbw.tile, cap=tbw.cap_t)
-    return decode(bw).reshape(rows, tbw.cols)
+    return decode(bw).reshape(*lead, tbw.cols)
 
 
 @dataclasses.dataclass(frozen=True)
 class QTiledBitmapWeight:
     """Tiled bitmap whose compact values are NF4-quantized per cell: the
     storage the fused dequant-decode kernel (``ops.qsalr_matmul``) reads."""
-    words: torch.Tensor     # int32 (rows, n_tiles, tile//32)
-    codes: torch.Tensor     # uint8 (rows, n_tiles, cap_t//2)
-    scales: torch.Tensor    # f32   (rows, n_tiles, 1)
+    words: torch.Tensor     # int32 ([E,] rows, n_tiles, tile//32)
+    codes: torch.Tensor     # uint8 ([E,] rows, n_tiles, cap_t//2)
+    scales: torch.Tensor    # f32   ([E,] rows, n_tiles, 1)
     cols: int
     tile: int
     cap_t: int
 
     @property
     def rows(self) -> int:
-        return self.words.shape[0]
+        return self.words.shape[-3]
 
     @property
     def n_tiles(self) -> int:
-        return self.words.shape[1]
+        return self.words.shape[-2]
 
 
 def tile_quantize_nf4(tbw: TiledBitmapWeight):
-    """Per-cell NF4 quantization of a tiled bitmap's compact values.
-    Returns (QTiledBitmapWeight sharing ``tbw.words``, dense (rows, cols)
-    quantization error).  ``cap_t`` must be even."""
+    """Per-cell NF4 quantization of a tiled bitmap's compact values (an
+    expert stack's too).  Returns (QTiledBitmapWeight sharing
+    ``tbw.words``, dense ([E,] rows, cols) quantization error).  ``cap_t`` must be even."""
     if tbw.cap_t % 2:
         raise ValueError(f"cap_t={tbw.cap_t} must be even to pack NF4 nibbles")
-    vals = tbw.values.float()                                # (rows, T, cap_t)
+    vals = tbw.values.float()                                # ([E,] rows, T, cap_t)
     scales = vals.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12)
     idx = nf4_index(vals / scales)
     codes = idx[..., 0::2] | (idx[..., 1::2] << 4)
@@ -207,7 +210,7 @@ def tile_dequantize_nf4(q: QTiledBitmapWeight, dtype=torch.float32) -> TiledBitm
 
 
 def qtile_decode(q: QTiledBitmapWeight, dtype=torch.float32) -> torch.Tensor:
-    """Dense (rows, cols) decode of the quantized tiled format."""
+    """Dense ([E,] rows, cols) decode of the quantized tiled format."""
     return tile_decode(tile_dequantize_nf4(q, dtype=dtype))
 
 

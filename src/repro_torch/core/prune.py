@@ -5,22 +5,25 @@ from __future__ import annotations
 import torch
 
 
-def magnitude_mask(w: torch.Tensor, p: float) -> torch.Tensor:
+def magnitude_mask(w: torch.Tensor, p: float, batch_dims: int = 0) -> torch.Tensor:
     """Static magnitude mask keeping the largest (1-p) fraction of |w|.
 
     Exactly ``round(p * size)`` entries are pruned, ties broken by index
     (a stable argsort), so downstream capacity planning is deterministic.
+    The leading ``batch_dims`` axes index independent matrices (an expert
+    stack), each masked on its own.
     """
-    flat = w.abs().reshape(-1)
-    n = flat.numel()
+    lead = w.shape[:batch_dims]
+    flat = w.abs().reshape(*lead, -1)
+    n = flat.shape[-1]
     k_prune = int(round(float(p) * n))
     if k_prune <= 0:
         return torch.ones_like(w, dtype=torch.bool)
     if k_prune >= n:
         return torch.zeros_like(w, dtype=torch.bool)
-    order = torch.argsort(flat, stable=True)
-    keep = torch.ones(n, dtype=torch.bool, device=w.device)
-    keep[order[:k_prune]] = False
+    order = torch.argsort(flat, dim=-1, stable=True)
+    keep = torch.ones_like(flat, dtype=torch.bool)
+    keep.scatter_(-1, order[..., :k_prune], False)
     return keep.reshape(w.shape)
 
 

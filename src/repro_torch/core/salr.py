@@ -23,6 +23,12 @@ untransposed layer, read by ``ops.nf4_matmul`` + ``ops.lora_matmul``.
 Other bases get no twin and decode from their native base.  The adapters
 are shared.
 
+An MoE expert stack is one ``SALRLinear`` whose every tensor leaf
+carries a leading E axis (``compress_stack``): a tiled-bitmap base with
+4-D words/values (all experts share ``tile`` and ``cap_t``), adapters
+(E, d_in, r) / (E, r, d_out), and the stacked NF4 twin; ``d_in`` and
+``d_out`` are one expert's.  ``models.moe`` runs it.
+
 ``apply_salr`` dispatches on the execution route: ``kernel`` runs the
 layer's CUDA op where one exists for its base (``bitmap_matmul`` for a
 tiled layer whose adapter rank is 0), ``reference`` decodes the base
@@ -293,6 +299,39 @@ def compress_linear(gen: torch.Generator, w: torch.Tensor, cfg: SALRConfig,
                        backend=cfg.backend)
     if cfg.dual_repr:
         layer = dataclasses.replace(layer, qbase=attach_qbase(layer))
+    return layer
+
+
+def compress_stack(gen: torch.Generator, w: torch.Tensor, cfg: SALRConfig) -> SALRLinear:
+    """Compress an expert stack W (E, d_in, d_out) into one stacked
+    SALRLinear, each expert exactly as ``compress_linear`` compresses it
+    under the bitmap method: its own magnitude mask, a tiled bitmap at the
+    shared capacity ``tiled_capacity(tile, p)`` whose spill folds into its
+    own residual, a truncated-SVD residual adapter, and a fresh LoRA
+    adapter (drawn expert by expert from ``gen``).  The mask, the encode
+    and the SVD run over the whole stack at once."""
+    if cfg.method != "bitmap":
+        raise NotImplementedError(f"expert stacks under SALR method {cfg.method!r} are "
+                                  "not yet ported (bitmap)")
+    e, d_in, d_out = w.shape
+    dtype = getattr(torch, cfg.dtype)
+    wd = w.to(dtype)
+    cap_t = bm.tiled_capacity(bm.default_tile(d_out), cfg.sparsity)
+    mask = prune.magnitude_mask(wd, cfg.sparsity, batch_dims=1)
+    flat, res = _tiled_encode(wd.reshape(e * d_in, d_out), cfg,
+                              mask=mask.reshape(e * d_in, d_out), cap_t=cap_t)
+    base = bm.TiledBitmapWeight(words=flat.words.reshape(e, d_in, *flat.words.shape[1:]),
+                                values=flat.values.reshape(e, d_in, *flat.values.shape[1:]),
+                                cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
+    res_ad = _res_adapter(res.reshape(e, d_in, d_out), cfg, False, dtype)
+    loras = [init_lora(gen, d_in, d_out, cfg.lora_rank, dtype=dtype, device=w.device)
+             for _ in range(e)]
+    lora = LoRAAdapter(a=torch.stack([lo.a for lo in loras]),
+                       b=torch.stack([lo.b for lo in loras]), scale=loras[0].scale)
+    layer = SALRLinear(base=base, lora=lora, res=res_ad, bias=None, d_in=d_in, d_out=d_out,
+                       backend=cfg.backend)
+    if cfg.dual_repr:
+        layer = dataclasses.replace(layer, qbase=bm.tile_quantize_nf4(base)[0])
     return layer
 
 

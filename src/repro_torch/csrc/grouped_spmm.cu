@@ -1,0 +1,394 @@
+// grouped_spmm: the SALR op over an MoE expert stack, each row with its
+// own expert:
+//
+//     y[r] = x[r] @ W_hat[e(r)] + round(x[r] @ A_cat[e(r)]) @ B_cat[e(r)]
+//
+// with W_hat[e] expert e's tiled bitmap (plain or NF4 values) decoded
+// inside the GEMM.  One kernel body, templated on the value loader and on
+// how a row finds its expert:
+//
+//   grouped_salr_spmm   PlainValues  TileMap  e(r) = tile_expert[r / block_m]
+//   grouped_qsalr_spmm  NF4Values    TileMap
+//   decode_salr_spmm    PlainValues  RowMap   e(r) = row_expert[r], -1: a pad row
+//   decode_qsalr_spmm   NF4Values    RowMap
+//
+// Replaces: src/repro/kernels/grouped_spmm.py:grouped_salr_spmm_pallas and
+// :grouped_qsalr_spmm_pallas (models/moe.py _grouped_ffn: expert-sorted,
+// block-aligned rows from group_assignments), :decode_salr_spmm_pallas and
+// :decode_qsalr_spmm_pallas (_decode_grid_ffn: rows in token-major
+// assignment order, no grouping).
+//
+// Bound on the H100: bytes at decode (64 assignment rows touch ~28 of 32
+// experts: their words, stored values and adapters, ~1 MB each), a mix
+// at batch prefill (8192 rows: ~12 GFLOP against ~56 MB).
+//
+// Design.  The TPU's decode grid iterates experts over one M tile and
+// masks the rows each step owns, because a Pallas grid cannot gather
+// rows.  Here a block of the decode kernel owns (column block, expert e)
+// and gathers the rows whose row_expert is e itself: it scans row_expert
+// in windows of 1024 rows, compacts the matches into shared memory (a
+// block-wide prefix count) and computes them 32 at a time, so the work is
+// k-way, with no sort.  Grid row E (one past the last expert) collects
+// the rows of no expert (row_expert outside [0, E), the -1 pad rows) and
+// writes exact zeros for them without reading x, so junk or NaN in a pad
+// row never reaches the output and expert -1 is never indexed.  A block
+// of the grouped kernel owns (column block, M tile t): the tile's rows
+// are contiguous and belong to expert tile_expert[t]; a tile taller than
+// 32 rows is walked 32 rows at a time, so no row block straddles two
+// tiles (block_m is 8 at decode).  A tile whose expert is out of range
+// writes zeros.
+//
+// Both kernels run the row work of salr_spmm.cu (tiled_bitmap.cuh): a
+// first launch computes u = x[r] @ A_cat[e(r)] into an (M, R) scratch,
+// reduced in f32 in k order and rounded once to the operand type; the
+// second decodes W_hat[e]'s bitmap words into shared memory and reduces
+// each row over k in order, then adds u[r] @ B_cat[e][:, cols] reduced in
+// f32 and rounds y once.  One device function serves each of the three
+// pieces for both routes (rows_dense_dot, rows_bitmap_dot and the
+// adapter term through rows_dense_dot), so the grouped and decode
+// kernels are bitwise equal per row by construction, a row does not
+// depend on which rows share its block or on M, and each row equals what
+// salr_spmm gives for its expert's weights.  No library GEMM computes any
+// part.  Tensor cores (wgmma), TMA and skipping slack tiles are later
+// work.
+#include "tiled_bitmap.cuh"
+
+namespace {
+
+using salr::BK;
+using salr::BM;
+using salr::BN;
+using salr::ROWS_PER_THREAD;
+using salr::Smem;
+using salr::THREADS;
+using salr::WARPS;
+
+constexpr int WINDOW = THREADS * 8;  // row_expert entries a decode block compacts at once
+
+// The value loader of expert e's cells (an expert holds K x n_tiles cells).
+template <typename T>
+__device__ __forceinline__ salr::PlainValues<T> expert_values(const salr::PlainValues<T>& v,
+                                                              int e, size_t cells) {
+  return {v.values + (size_t)e * cells * v.cap_t, v.cap_t};
+}
+template <typename T>
+__device__ __forceinline__ salr::NF4Values<T> expert_values(const salr::NF4Values<T>& v, int e,
+                                                            size_t cells) {
+  return {v.codes + (size_t)e * cells * (v.cap_t / 2), v.scales + (size_t)e * cells, v.lut,
+          v.cap_t};
+}
+
+// Stage rows[0..BM) x cols [k0, k0+BK) of a row-major (., ld) matrix; an
+// empty lane (-1) and columns past kmax stage zero.
+template <typename T>
+__device__ __forceinline__ void load_rows_gather(float (*dst)[BK], const T* __restrict__ src,
+                                                 const int* rows, int k0, int kmax, int ld) {
+#pragma unroll
+  for (int j = 0; j < BM * BK / THREADS; ++j) {
+    const int i = threadIdx.x + THREADS * j, r = i / BK, c = i % BK;
+    const int m = rows[r], k = k0 + c;
+    dst[r][c] = (m >= 0 && k < kmax) ? salr::to_f32(src[(size_t)m * ld + k]) : 0.f;
+  }
+}
+
+// acc += x[rows] @ D[:, n0:n0+BN] for a dense row-major (K, N) operand D,
+// x row-major (., ldx): the reduction over k in order, per row.
+template <typename T>
+__device__ __forceinline__ void rows_dense_dot(Smem& s, float acc[ROWS_PER_THREAD],
+                                               const T* __restrict__ x, int ldx,
+                                               const int* rows, const T* __restrict__ d,
+                                               int K, int n0, int N) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    load_rows_gather(s.a, x, rows, k0, K, ldx);
+    salr::load_dense(s.b, d, k0, K, n0, N, N);
+    __syncthreads();
+    salr::mma_stage(s, acc);
+    __syncthreads();
+  }
+}
+
+// acc += x[rows] @ W_hat[:, block cols] with W_hat one expert's tiled
+// bitmap; the block's columns are word wi of column tile ti.
+template <typename T, typename V>
+__device__ __forceinline__ void rows_bitmap_dot(Smem& s, float acc[ROWS_PER_THREAD],
+                                                const T* __restrict__ x, const int* rows,
+                                                const uint32_t* __restrict__ words, const V& vals,
+                                                int K, int n_tiles, int wpt, int cap_t, int ti,
+                                                int wi) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    load_rows_gather(s.a, x, rows, k0, K, K);
+    salr::load_bitmap(s.b, words, vals, k0, K, n_tiles, wpt, cap_t, ti, wi);
+    __syncthreads();
+    salr::mma_stage(s, acc);
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ y, const float acc[ROWS_PER_THREAD],
+                                           const int* rows, int N, int n0) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_THREAD; ++i) {
+    const int m = rows[warp + WARPS * i], n = n0 + lane;
+    if (m >= 0 && n < N) y[(size_t)m * N + n] = salr::from_f32<T>(acc[i]);
+  }
+}
+
+// Grouped rows: grid y = M tile t, rows [t*block_m, (t+1)*block_m), all of
+// expert tile_expert[t].  Calls body(e) once per 32-row chunk with the
+// chunk's rows in rows_s (-1 past the tile); e = -1 for an expert out of
+// range.
+struct TileMap {
+  const int* tile_expert;
+  int M, E, block_m;
+
+  template <typename F>
+  __device__ __forceinline__ void for_each_chunk(int* rows_s, int*, F&& body) const {
+    const int t = blockIdx.y;
+    const int te = tile_expert[t];
+    const int e = (te >= 0 && te < E) ? te : -1;
+    const int r0 = t * block_m, r1 = min(r0 + block_m, M);
+    for (int c0 = r0; c0 < r1; c0 += BM) {
+      if (threadIdx.x < BM)
+        rows_s[threadIdx.x] = c0 + (int)threadIdx.x < r1 ? c0 + (int)threadIdx.x : -1;
+      __syncthreads();
+      body(e);
+      __syncthreads();
+    }
+  }
+};
+
+// Decode rows: grid y = expert e in [0, E]; the block gathers the rows
+// whose row_expert is e (for e = E: outside [0, E), body called with -1),
+// in ascending order, 32 per chunk.
+struct RowMap {
+  const int* row_expert;
+  int M, E;
+
+  template <typename F>
+  __device__ __forceinline__ void for_each_chunk(int* rows_s, int* list, F&& body) const {
+    __shared__ int warp_total[WARPS];
+    const int e = blockIdx.y;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    for (int w0 = 0; w0 < M; w0 += WINDOW) {
+      // each thread tests 8 consecutive rows, then a block-wide prefix
+      // count places its matches in the list
+      const int base = w0 + (int)threadIdx.x * 8;
+      bool own[8];
+      int cnt = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = base + j;
+        const int re = r < M ? row_expert[r] : -1;
+        own[j] = r < M && (e < E ? re == e : (re < 0 || re >= E));
+        cnt += own[j];
+      }
+      int incl = cnt;
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      if (lane == 31) warp_total[warp] = incl;
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        before += w < warp ? warp_total[w] : 0;
+        total += warp_total[w];
+      }
+      int o = before + incl - cnt;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (own[j]) list[o++] = base + j;
+      __syncthreads();
+      for (int c0 = 0; c0 < total; c0 += BM) {
+        if (threadIdx.x < BM) rows_s[threadIdx.x] =
+            c0 + (int)threadIdx.x < total ? list[c0 + threadIdx.x] : -1;
+        __syncthreads();
+        body(e < E ? e : -1);
+        __syncthreads();
+      }
+    }
+  }
+};
+
+// First launch: u[r, r0:r0+BN] = x[r] @ A_cat[e(r)][:, r0:r0+BN], one
+// rounding to T; grid (ceil(R/BN), the map's y).  Rows of no expert are
+// not written (the second launch never reads them).  V only names the op
+// in profiles.
+template <typename T, typename V, typename Map>
+__global__ void __launch_bounds__(THREADS)
+moe_adapter_u_kernel(const T* __restrict__ x, const T* __restrict__ a, T* __restrict__ u,
+                     int K, int R, Map map) {
+  __shared__ __align__(16) Smem s;
+  __shared__ int rows_s[BM];
+  __shared__ int list[WINDOW];
+  const int r0 = blockIdx.x * BN;
+  map.for_each_chunk(rows_s, list, [&](int e) {
+    if (e < 0) return;
+    float acc[ROWS_PER_THREAD] = {0.f};
+    rows_dense_dot(s, acc, x, K, rows_s, a + (size_t)e * K * R, K, r0, R);
+    store_rows(u, acc, rows_s, R, r0);
+  });
+}
+
+// Second launch: y[rows, block cols] for one chunk of expert e's rows
+// (zeros for e = -1); grid (n_tiles*wpt column blocks, the map's y).
+template <typename T, typename V, typename Map>
+__device__ __forceinline__ void moe_salr_body(Smem& s, int* rows_s, int* list,
+                                              const T* __restrict__ x,
+                                              const uint32_t* __restrict__ words, const V& vals,
+                                              const T* __restrict__ u, const T* __restrict__ b,
+                                              T* __restrict__ y, int K, int R, int n_tiles,
+                                              int wpt, int cap_t, const Map& map) {
+  const int N = n_tiles * wpt * 32;
+  const int ti = blockIdx.x / wpt, wi = blockIdx.x % wpt, n0 = blockIdx.x * BN;
+  const size_t cells = (size_t)K * n_tiles;
+  map.for_each_chunk(rows_s, list, [&](int e) {
+    float acc[ROWS_PER_THREAD] = {0.f};
+    if (e >= 0) {
+      rows_bitmap_dot(s, acc, x, rows_s, words + (size_t)e * cells * wpt,
+                      expert_values(vals, e, cells), K, n_tiles, wpt, cap_t, ti, wi);
+      float delta[ROWS_PER_THREAD] = {0.f};
+      rows_dense_dot(s, delta, u, R, rows_s, b + (size_t)e * R * N, R, n0, N);
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_THREAD; ++i) acc[i] += delta[i];
+    }
+    store_rows(y, acc, rows_s, N, n0);
+  });
+}
+
+template <typename T, typename V, typename Map>
+__global__ void __launch_bounds__(THREADS)
+moe_salr_kernel(const T* __restrict__ x, const uint32_t* __restrict__ words, V vals,
+                const T* __restrict__ u, const T* __restrict__ b, T* __restrict__ y, int K,
+                int R, int n_tiles, int wpt, int cap_t, Map map) {
+  __shared__ __align__(16) Smem s;
+  __shared__ int rows_s[BM];
+  __shared__ int list[WINDOW];
+  if constexpr (V::kTable) {
+    __shared__ float lut[16];
+    salr::load_nf4_table(lut);
+    __syncthreads();
+    // a loader built here, so the compiler sees lut in shared memory
+    const V with_lut{vals.codes, vals.scales, lut, vals.cap_t};
+    moe_salr_body(s, rows_s, list, x, words, with_lut, u, b, y, K, R, n_tiles, wpt, cap_t, map);
+  } else {
+    moe_salr_body(s, rows_s, list, x, words, vals, u, b, y, K, R, n_tiles, wpt, cap_t, map);
+  }
+}
+
+// grid_y / u_grid_y: the map's y extent for the two launches (a tile
+// count for TileMap; E + 1 and E for RowMap).
+template <typename T, typename V, typename Map>
+int launch(const void* x, const void* words, V vals, const void* a, const void* b, void* u,
+           void* y, const Map& map, int grid_y, int u_grid_y, int K, int R, int n_tiles,
+           int wpt, int cap_t, cudaStream_t stream) {
+  if (R > 0) {  // a rank-0 stack has no adapter term
+    dim3 grid_u((R + BN - 1) / BN, u_grid_y);
+    moe_adapter_u_kernel<T, V, Map><<<grid_u, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), K, R, map);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid(n_tiles * wpt, grid_y);
+  moe_salr_kernel<T, V, Map><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint32_t*>(words), vals,
+      static_cast<const T*>(u), static_cast<const T*>(b), static_cast<T*>(y), K, R, n_tiles,
+      wpt, cap_t, map);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The four entries differ in the loader and the map; dispatch the dtype.
+template <template <typename> class Values, typename Map, typename Make>
+int dispatch(int dtype, const Make& make, const void* x, const void* words, const void* a,
+             const void* b, void* u, void* y, const Map& map, int grid_y, int u_grid_y, int K,
+             int R, int n_tiles, int wpt, int cap_t, int device, void* stream) {
+  cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(x, words, make(Values<float>{}), a, b, u, y, map, grid_y, u_grid_y, K,
+                         R, n_tiles, wpt, cap_t, st);
+  return launch<__nv_bfloat16>(x, words, make(Values<__nv_bfloat16>{}), a, b, u, y, map,
+                               grid_y, u_grid_y, K, R, n_tiles, wpt, cap_t, st);
+}
+
+// Fills a loader of the requested operand type from the entry's pointers.
+struct PlainMaker {
+  const void* values;
+  int cap_t;
+  template <typename T>
+  salr::PlainValues<T> operator()(salr::PlainValues<T>) const {
+    return {static_cast<const T*>(values), cap_t};
+  }
+};
+struct NF4Maker {
+  const void* codes;
+  const void* scales;
+  int cap_t;
+  template <typename T>
+  salr::NF4Values<T> operator()(salr::NF4Values<T>) const {
+    return {static_cast<const uint8_t*>(codes), static_cast<const float*>(scales), nullptr,
+            cap_t};
+  }
+};
+
+}  // namespace
+
+// Common arguments.  x (M, K) with M = tiles x block_m (grouped) or any M
+// (decode); words (E, K, n_tiles, wpt) uint32; a (E, K, R); b (E, R,
+// n_tiles*wpt*32); u (M, R) scratch; y (M, n_tiles*wpt*32).  Grouped:
+// tile_expert (M / block_m,) int32.  Decode: row_expert (M,) int32, -1 on
+// pad rows.  dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal
+// of the tensors.  Each returns cudaGetLastError() after its launches.
+
+// values (E, K, n_tiles, cap_t) of the operand type.
+extern "C" int grouped_salr_spmm(const void* x, const void* words, const void* values,
+                                 const void* a, const void* b, void* u, void* y,
+                                 const void* tile_expert, int M, int K, int R, int E,
+                                 int n_tiles, int wpt, int cap_t, int block_m, int dtype,
+                                 int device, void* stream) {
+  const TileMap map{static_cast<const int*>(tile_expert), M, E, block_m};
+  return dispatch<salr::PlainValues>(dtype, PlainMaker{values, cap_t}, x, words, a, b, u, y,
+                                     map, M / block_m, M / block_m, K, R, n_tiles, wpt, cap_t,
+                                     device, stream);
+}
+
+// codes (E, K, n_tiles, cap_t/2) uint8, interleaved (slot 2i low nibble,
+// 2i+1 high); scales (E, K, n_tiles) f32.
+extern "C" int grouped_qsalr_spmm(const void* x, const void* words, const void* codes,
+                                  const void* scales, const void* a, const void* b, void* u,
+                                  void* y, const void* tile_expert, int M, int K, int R, int E,
+                                  int n_tiles, int wpt, int cap_t, int block_m, int dtype,
+                                  int device, void* stream) {
+  const TileMap map{static_cast<const int*>(tile_expert), M, E, block_m};
+  return dispatch<salr::NF4Values>(dtype, NF4Maker{codes, scales, cap_t}, x, words, a, b, u, y,
+                                   map, M / block_m, M / block_m, K, R, n_tiles, wpt, cap_t,
+                                   device, stream);
+}
+
+extern "C" int decode_salr_spmm(const void* x, const void* words, const void* values,
+                                const void* a, const void* b, void* u, void* y,
+                                const void* row_expert, int M, int K, int R, int E, int n_tiles,
+                                int wpt, int cap_t, int dtype, int device, void* stream) {
+  const RowMap map{static_cast<const int*>(row_expert), M, E};
+  return dispatch<salr::PlainValues>(dtype, PlainMaker{values, cap_t}, x, words, a, b, u, y,
+                                     map, E + 1, E, K, R, n_tiles, wpt, cap_t, device, stream);
+}
+
+extern "C" int decode_qsalr_spmm(const void* x, const void* words, const void* codes,
+                                 const void* scales, const void* a, const void* b, void* u,
+                                 void* y, const void* row_expert, int M, int K, int R, int E,
+                                 int n_tiles, int wpt, int cap_t, int dtype, int device,
+                                 void* stream) {
+  const RowMap map{static_cast<const int*>(row_expert), M, E};
+  return dispatch<salr::NF4Values>(dtype, NF4Maker{codes, scales, cap_t}, x, words, a, b, u, y,
+                                   map, E + 1, E, K, R, n_tiles, wpt, cap_t, device, stream);
+}
+
+extern "C" const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -4,10 +4,10 @@ Each source compiles on its own (``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared -Xcompiler -fPIC``) into a shared library with
 a plain C interface under ``build/repro_torch_kernels/`` at the root of
 the checkout; one source may hold several kernels' entry points
-(``salr_spmm.cu`` holds two, ``quant_attention.cu`` four).  A library's
-file name carries a hash of its sources and flags, so an edit rebuilds
-it.  A failed build raises; nothing falls
-back to the plain PyTorch versions.  Pointers and the stream cross the
+(``salr_spmm.cu`` holds two, ``quant_attention.cu`` and
+``grouped_spmm.cu`` four each).  A library's file name carries a hash
+of its sources and flags, so an edit rebuilds it.  A failed build
+raises; nothing falls back to the plain PyTorch versions.  Pointers and the stream cross the
 boundary as ``c_void_p``; every entry returns the CUDA error code of its
 launch.
 """
@@ -40,6 +40,10 @@ KERNELS = {
     "nm_spmm": ("nm_spmm.cu", [_P] * 4 + [_I] * 7 + [_P]),
     "fused_lora": ("fused_lora.cu", [_P] * 4 + [_I] * 6 + [_P]),
     "nf4_spmm": ("nf4_spmm.cu", [_P] * 4 + [_I] * 5 + [_P]),
+    "grouped_salr_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 10 + [_P]),
+    "grouped_qsalr_spmm": ("grouped_spmm.cu", [_P] * 9 + [_I] * 10 + [_P]),
+    "decode_salr_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 9 + [_P]),
+    "decode_qsalr_spmm": ("grouped_spmm.cu", [_P] * 9 + [_I] * 9 + [_P]),
 }
 
 _LIBS: dict = {}                  # kernel name -> its loaded library

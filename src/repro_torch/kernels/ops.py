@@ -23,7 +23,8 @@ LAUNCHES = {"salr_spmm": 0, "bitmap_spmm": 0, "paged_gqa_attention": 0,
             "qsalr_spmm": 0, "ring_quant_gqa_attention": 0,
             "paged_quant_gqa_attention": 0, "ring_nf4_gqa_attention": 0,
             "paged_nf4_gqa_attention": 0, "nm_spmm": 0, "fused_lora": 0,
-            "nf4_spmm": 0}
+            "nf4_spmm": 0, "grouped_salr_spmm": 0, "grouped_qsalr_spmm": 0,
+            "decode_salr_spmm": 0, "decode_qsalr_spmm": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,8 +74,13 @@ def _flatten(x: torch.Tensor) -> tuple:
     return x.reshape(-1, x.shape[-1]).contiguous(), x.shape[:-1]
 
 
-def _check_tiled(name: str, x2: torch.Tensor, tbw) -> None:
-    """The tiled layout a SpMM kernel takes (native or NF4 payload)."""
+def _check_tiled(name: str, x2: torch.Tensor, tbw, n_lead: int = 0) -> None:
+    """The tiled layout a SpMM kernel takes (native or NF4 payload); an
+    expert stack (``n_lead`` = 1) carries a leading E axis on every leaf."""
+    lead = tuple(tbw.words.shape[:-3])
+    if tbw.words.ndim != 3 + n_lead:
+        raise ValueError(f"{name}: words {tuple(tbw.words.shape)} must have "
+                         f"{3 + n_lead} dims")
     if tbw.rows != x2.shape[1]:
         raise ValueError(f"{name}: x has K={x2.shape[1]}, weight {tbw.rows} rows")
     if tbw.tile % 32 or tbw.tile > 256 or tbw.n_tiles * tbw.tile != tbw.cols:
@@ -85,16 +91,22 @@ def _check_tiled(name: str, x2: torch.Tensor, tbw) -> None:
                          f"up to the tile")
     if tbw.words.dtype != torch.int32:
         raise TypeError(f"{name}: words must be int32")
+    cells = (*lead, tbw.rows, tbw.n_tiles)
+    if tbw.words.shape[-1] != tbw.tile // 32:
+        raise ValueError(f"{name}: words {tuple(tbw.words.shape)} do not fit tile {tbw.tile}")
     if isinstance(tbw, bm.QTiledBitmapWeight):
-        cells = (tbw.rows, tbw.n_tiles)
         if tbw.codes.shape != (*cells, tbw.cap_t // 2) or tbw.scales.shape != (*cells, 1):
             raise ValueError(f"{name}: codes {tuple(tbw.codes.shape)} / scales "
                              f"{tuple(tbw.scales.shape)} do not fit cells {cells}, "
                              f"cap_t {tbw.cap_t}")
         if tbw.codes.dtype != torch.uint8 or tbw.scales.dtype != torch.float32:
             raise TypeError(f"{name}: codes must be uint8 and scales float32")
-    elif tbw.values.dtype != x2.dtype:
-        raise TypeError(f"{name}: values must be {x2.dtype}")
+    else:
+        if tbw.values.shape != (*cells, tbw.cap_t):
+            raise ValueError(f"{name}: values {tuple(tbw.values.shape)} do not fit cells "
+                             f"{cells}, cap_t {tbw.cap_t}")
+        if tbw.values.dtype != x2.dtype:
+            raise TypeError(f"{name}: values must be {x2.dtype}")
 
 
 def _check_adapters(name: str, tbw, a_cat: torch.Tensor, b_cat: torch.Tensor,
@@ -416,3 +428,109 @@ def paged_nf4_gqa_attention(q, k_pool, v_pool, ks_pool, vs_pool, page_table,
     d/2) uint8, split-packed, with scales (P, page_size, KH)."""
     return _quant_attention("paged_nf4_gqa_attention", "nf4", q, k_pool, v_pool,
                             ks_pool, vs_pool, pos, page_table)
+
+
+# ---------------------------------------------------------------------------
+# MoE expert stacks: the SALR op with each row on its own expert
+# ---------------------------------------------------------------------------
+
+def _moe_matmul(name: str, x: torch.Tensor, emap: torch.Tensor, stack, a_cat, b_cat,
+                block_m: int, grouped: bool) -> torch.Tensor:
+    """Check and run one of the four expert-stack kernels.  x (..., K)
+    rows are padded with zeros to a ``block_m`` multiple; grouped: emap is
+    ``tile_expert`` (M_pad / block_m,) int32; decode: ``row_expert``
+    (<= M_pad,) int32, padded with -1.  A rank-0 (or absent) adapter
+    means no adapter term; B_cat is zero-padded to the encoded width."""
+    quant = isinstance(stack, bm.QTiledBitmapWeight)
+    leaves = (stack.words, stack.codes, stack.scales) if quant else (stack.words, stack.values)
+    adapters = tuple(t for t in (a_cat, b_cat) if t is not None)
+    _forward_only(name, x, *leaves[1:], *adapters)
+    x2, lead = _flatten(x)
+    m = x2.shape[0]
+    _check_tiled(name, x2, stack, n_lead=1)
+    n_exp = stack.words.shape[0]
+    if block_m <= 0:
+        raise ValueError(f"{name}: block_m {block_m} must be positive")
+    x2 = torch.nn.functional.pad(x2, (0, 0, 0, (-m) % block_m))
+    mp = x2.shape[0]
+    if emap.dtype != torch.int32:
+        raise TypeError(f"{name}: the row map must be int32")
+    if grouped and emap.shape != (mp // block_m,):
+        raise ValueError(f"{name}: tile_expert {tuple(emap.shape)} must map every "
+                         f"{block_m}-row tile of {mp} rows")
+    if not grouped:
+        if emap.ndim != 1 or emap.shape[0] > mp:
+            raise ValueError(f"{name}: row_expert {tuple(emap.shape)} has more rows "
+                             f"than x ({mp})")
+        emap = torch.nn.functional.pad(emap, (0, mp - emap.shape[0]), value=-1)
+    emap = emap.contiguous()
+    if a_cat is None or a_cat.shape[-1] == 0:
+        a_cat = b_cat = None
+    else:
+        b_cat = torch.nn.functional.pad(b_cat, (0, stack.cols - b_cat.shape[-1]))
+        if (a_cat.shape[:2] != (n_exp, stack.rows)
+                or b_cat.shape != (n_exp, a_cat.shape[-1], stack.cols)):
+            raise ValueError(f"{name}: adapter shapes {tuple(a_cat.shape)} / "
+                             f"{tuple(b_cat.shape)} do not fit ({n_exp}, {stack.rows}, R) / "
+                             f"({n_exp}, R, {stack.cols})")
+    adapters = tuple(t for t in (a_cat, b_cat) if t is not None)
+    if _placement(name, x2, emap, *leaves, *adapters) == "cpu":
+        plain = getattr(ref, name + "_ref")
+        y = (plain(x2, emap, stack, a_cat, b_cat, block_m) if grouped
+             else plain(x2, emap, stack, a_cat, b_cat))
+    else:
+        if any(t.dtype != x2.dtype for t in adapters):
+            raise TypeError(f"{name}: adapters must be {x2.dtype}")
+        if (mp // block_m if grouped else n_exp + 1) > 65535:
+            raise ValueError(f"{name}: {mp} rows in {block_m}-row tiles exceed the grid")
+        code = _check_cuda(name, x2.dtype, emap, *leaves, *adapters)
+        r = a_cat.shape[-1] if a_cat is not None else 0
+        u = torch.empty((mp, r), dtype=x2.dtype, device=x2.device)
+        y = torch.empty((mp, stack.cols), dtype=x2.dtype, device=x2.device)
+        if mp:
+            ptr = [t.data_ptr() for t in leaves]
+            ab = [t.data_ptr() if t is not None else None for t in (a_cat, b_cat)]
+            tail = (block_m,) if grouped else ()
+            _launch(name, x2.device, x2.data_ptr(), *ptr, *ab, u.data_ptr(), y.data_ptr(),
+                    emap.data_ptr(), mp, stack.rows, r, n_exp, stack.n_tiles,
+                    stack.tile // 32, stack.cap_t, *tail, code)
+    return y[:m].reshape(*lead, stack.cols)
+
+
+def grouped_salr_matmul(x: torch.Tensor, tile_expert: torch.Tensor,
+                        tbw: bm.TiledBitmapWeight, a_cat, b_cat, *,
+                        block_m: int = 128) -> torch.Tensor:
+    """Expert-grouped SALR op: row r of x (..., K) uses expert
+    ``tile_expert[r // block_m]``'s tiled bitmap (words (E, K, n_tiles,
+    tile/32), values (E, K, n_tiles, cap_t)) and adapters a_cat (E, K, R),
+    b_cat (E, R, <= cols); returns (..., tbw.cols)."""
+    return _moe_matmul("grouped_salr_spmm", x, tile_expert, tbw, a_cat, b_cat, block_m,
+                       grouped=True)
+
+
+def grouped_qsalr_matmul(x: torch.Tensor, tile_expert: torch.Tensor,
+                         q: bm.QTiledBitmapWeight, a_cat, b_cat, *,
+                         block_m: int = 128) -> torch.Tensor:
+    """:func:`grouped_salr_matmul` over an expert stack's NF4 twin (codes
+    (E, K, n_tiles, cap_t/2) uint8, scales (E, K, n_tiles, 1) f32),
+    dequantized inside the GEMM."""
+    return _moe_matmul("grouped_qsalr_spmm", x, tile_expert, q, a_cat, b_cat, block_m,
+                       grouped=True)
+
+
+def decode_salr_matmul(x: torch.Tensor, row_expert: torch.Tensor,
+                       tbw: bm.TiledBitmapWeight, a_cat, b_cat, *,
+                       block_m: int = 8) -> torch.Tensor:
+    """Decode-grid SALR op: row r of x (..., K), in assignment order, uses
+    expert ``row_expert[r]`` (int32; -1, and every row past the map, is a
+    pad row whose output is exactly zero)."""
+    return _moe_matmul("decode_salr_spmm", x, row_expert, tbw, a_cat, b_cat, block_m,
+                       grouped=False)
+
+
+def decode_qsalr_matmul(x: torch.Tensor, row_expert: torch.Tensor,
+                        q: bm.QTiledBitmapWeight, a_cat, b_cat, *,
+                        block_m: int = 8) -> torch.Tensor:
+    """:func:`decode_salr_matmul` over an expert stack's NF4 twin."""
+    return _moe_matmul("decode_qsalr_spmm", x, row_expert, q, a_cat, b_cat, block_m,
+                       grouped=False)

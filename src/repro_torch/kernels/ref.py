@@ -3,6 +3,7 @@ plain tensor ops.  The kernel wrappers (``ops``) run these for tensors on
 the CPU; on the GPU they are the yardstick the kernels are held to."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -36,6 +37,74 @@ def qsalr_spmm_ref(x: torch.Tensor, q: bm.QTiledBitmapWeight,
     base = x.float() @ bm.qtile_decode(q, dtype=x.dtype).float()
     u = (x.float() @ a_cat.float()).to(b_cat.dtype)
     return (base + u.float() @ b_cat.float()).to(x.dtype)
+
+
+def _expert_rows_ref(x: torch.Tensor, row_e: torch.Tensor, n_experts: int, weight,
+                     a_cat, b_cat, cols: int) -> torch.Tensor:
+    """y[r] = x[r] @ W[e] + round(x[r] @ A_cat[e]) @ B_cat[e] for e =
+    row_e[r]: f32 sums, u rounded to B_cat's dtype, one rounding of y.
+    ``weight(e)`` is expert e's dense (K, cols) weight as it enters the
+    product; ``a_cat`` None means no adapter.  Rows of no expert (outside
+    [0, E)) come out zero whatever x holds there.  An expert with one row
+    is multiplied with a zero row beside it: a one-row product may take
+    another summation order than a GEMM (MKL's gemv does), and a row's
+    result should not depend on how many rows share its expert."""
+    y = torch.zeros((x.shape[0], cols), dtype=torch.float32, device=x.device)
+    for e in range(n_experts):
+        idx = (row_e == e).nonzero().squeeze(1)
+        if not idx.numel():
+            continue
+        xe = torch.nn.functional.pad(x[idx].float(), (0, 0, 0, int(idx.numel() == 1)))
+        acc = xe @ weight(e).float()
+        if a_cat is not None:
+            u = (xe @ a_cat[e].float()).to(b_cat.dtype)
+            acc = acc + u.float() @ b_cat[e].float()
+        y[idx] = acc[:idx.numel()]
+    return y.to(x.dtype)
+
+
+def _expert(stack, e: int):
+    """Expert e's slice of a stacked (Q)TiledBitmapWeight."""
+    return dataclasses.replace(stack, **{f: getattr(stack, f)[e]
+                                         for f in ("words", "values", "codes", "scales")
+                                         if hasattr(stack, f)})
+
+
+def _tile_rows(tile_expert: torch.Tensor, block_m: int) -> torch.Tensor:
+    return tile_expert.repeat_interleave(block_m)
+
+
+def grouped_salr_spmm_ref(x: torch.Tensor, tile_expert: torch.Tensor,
+                          tbw: bm.TiledBitmapWeight, a_cat, b_cat, block_m: int) -> torch.Tensor:
+    """The SALR op over expert-grouped rows: row r uses expert
+    ``tile_expert[r // block_m]``'s tiled bitmap and adapters."""
+    return _expert_rows_ref(x, _tile_rows(tile_expert, block_m), tbw.words.shape[0],
+                            lambda e: bm.tile_decode(_expert(tbw, e)), a_cat, b_cat, tbw.cols)
+
+
+def decode_salr_spmm_ref(x: torch.Tensor, row_expert: torch.Tensor,
+                         tbw: bm.TiledBitmapWeight, a_cat, b_cat) -> torch.Tensor:
+    """The SALR op over assignment rows: row r uses expert
+    ``row_expert[r]`` (-1: a pad row, exact zeros)."""
+    return _expert_rows_ref(x, row_expert, tbw.words.shape[0],
+                            lambda e: bm.tile_decode(_expert(tbw, e)), a_cat, b_cat, tbw.cols)
+
+
+def grouped_qsalr_spmm_ref(x: torch.Tensor, tile_expert: torch.Tensor,
+                           q: bm.QTiledBitmapWeight, a_cat, b_cat, block_m: int) -> torch.Tensor:
+    """:func:`grouped_salr_spmm_ref` over NF4 values: level x cell scale
+    in f32, rounded to x's dtype as the weight enters the product."""
+    return _expert_rows_ref(x, _tile_rows(tile_expert, block_m), q.words.shape[0],
+                            lambda e: bm.qtile_decode(_expert(q, e), dtype=x.dtype),
+                            a_cat, b_cat, q.cols)
+
+
+def decode_qsalr_spmm_ref(x: torch.Tensor, row_expert: torch.Tensor,
+                          q: bm.QTiledBitmapWeight, a_cat, b_cat) -> torch.Tensor:
+    """:func:`decode_salr_spmm_ref` over NF4 values."""
+    return _expert_rows_ref(x, row_expert, q.words.shape[0],
+                            lambda e: bm.qtile_decode(_expert(q, e), dtype=x.dtype),
+                            a_cat, b_cat, q.cols)
 
 
 def nm_spmm_ref(x: torch.Tensor, nmw: bm.NMWeight) -> torch.Tensor:

@@ -20,10 +20,13 @@ Admission is FIFO and memory-pressure aware (the head waits while free
 pages, after LRU eviction of unreferenced radix leaves, do not suffice).
 
 Every forward runs the execution plan resolved once at construction:
-prefill ticks its prefill route, decode ticks its decode route.  Engine
+prefill ticks its prefill route, decode ticks its decode route (an MoE
+layer's route from the largest bucket and the slot count).  Engine
 tokens equal ``greedy_generate``'s for the same prompts and plan up to
-floating-point ties (every linear kernel reduces each row in an order
-that does not depend on the batch).
+floating-point ties (every linear and expert kernel reduces each row in
+an order that does not depend on the batch, and the two MoE kernel
+routes are bitwise equal per row, so the plans may even differ in their
+MoE routes).
 """
 from __future__ import annotations
 
@@ -249,7 +252,13 @@ class ContinuousBatchingEngine:
         self.device = M.params_device(params)
         self.buckets = tuple(sorted(ecfg.buckets or default_buckets(ecfg.max_ctx)))
         self._time = time_fn
-        self.plan = ecfg.plan or execplan.resolve_plan(cfg, backend=ecfg.backend)
+        # one plan per engine: a prefill tick runs one request at bucket
+        # scale (the largest bucket bounds the MoE crossover lookup), a
+        # decode tick n_slots tokens; greedy_generate must be handed this
+        # plan to take the same routes
+        self.plan = ecfg.plan or execplan.resolve_plan(
+            cfg, backend=ecfg.backend,
+            phase_tokens={"prefill": max(self.buckets), "decode": ecfg.n_slots})
         self.paged = self.plan.kv_layout("decode") == "paged"
         self.page_size = ecfg.page_size
         self.max_pages = -(-ecfg.max_ctx // ecfg.page_size)

@@ -10,10 +10,15 @@ diverging step differ by no more than the noise that bf16 rounding at
 other places puts on such a gap (see ``parity_report``), which can flip
 the step.
 
-Runs on ``cuda`` unless ``--device cpu``.  Prompts are drawn from
-``--seed`` with numpy.  Example (full width, on the GPU):
+The continuous engine resolves its own plan from its slot count and
+largest prefill bucket (for an MoE arch its MoE route may then differ
+from the batch engine's; the two kernel routes are bitwise equal per
+row).  Runs on ``cuda`` unless ``--device cpu``.  Prompts are drawn from
+``--seed`` with numpy.  Examples (full width, on the GPU):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m --engine both
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \
+      --engine both --requests 1 --batch 8
 """
 from __future__ import annotations
 
@@ -64,13 +69,21 @@ _ATTENTION_ROUTES = {
 }
 
 
+def moe_op(r: execplan.PhaseRoute, quant: bool) -> str:
+    """The op an MoE layer's expert stacks run under phase route ``r``."""
+    if r.moe == "dense_masked":
+        return "dense decode + GEMM over every expert, masked combine"
+    return f"ops.{'grouped' if r.moe == 'grouped' else 'decode'}_{'q' if quant else ''}salr_matmul"
+
+
 def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
-    """Per-phase route line: which op every SALR linear runs and, for
-    decode, which attention op reads the cache in the plan's decode
-    layout.  A quantized decode repr reads the NF4 twin, which
-    ``compress_linear`` emits whenever the config asks for one; the op
-    that reads it follows the base it was made from (a tiled bitmap's
-    twin: qsalr_matmul; a dense or masked base's: nf4_matmul)."""
+    """Per-phase route line: which op every SALR linear runs, for an MoE
+    arch which op its expert stacks run, and, for decode, which attention
+    op reads the cache in the plan's decode layout.  A quantized decode
+    repr reads the NF4 twin, which ``compress_linear`` (and
+    ``compress_stack``) emit whenever the config asks for one; the op that
+    reads it follows the base it was made from (a tiled bitmap's twin:
+    qsalr_matmul; a dense or masked base's: nf4_matmul)."""
     parts = []
     for phase in ("prefill", "decode"):
         r = plan.route(phase)
@@ -79,6 +92,8 @@ def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
             desc = "dense decode + GEMM"
         else:
             desc = (_TWIN_ROUTES if quant else _KERNEL_ROUTES)[cfg.salr.method]
+        if cfg.n_experts:
+            desc += f", moe={moe_op(r, bool(quant))}"
         desc += f", kv_dtype={r.kv_dtype}"
         if phase == "decode":
             desc += f", attention={_ATTENTION_ROUTES[r.kv, r.kv_dtype]}"
@@ -177,7 +192,7 @@ def build_params(cfg, seed: int, device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm_135m")
+    ap.add_argument("--arch", default="smollm_135m", choices=configs.PORTED)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--backend", default="kernel",
                     choices=["kernel", "reference", "both"])
@@ -211,8 +226,9 @@ def main(argv=None) -> int:
                 print(f"engine=batch backend={b}: {greedy.size} tokens in {dt:.2f}s "
                       f"({greedy.size / dt:.1f} tok/s); sample {greedy[0, :8].tolist()}")
             if args.engine in ("continuous", "both"):
-                _, results, m = run_continuous(cfg, params, prompts, args.gen,
-                                               max(2, args.batch), plan=plan)
+                eng, results, m = run_continuous(cfg, params, prompts, args.gen,
+                                                 max(2, args.batch), backend=b)
+                print(f"engine=continuous backend={b}: {route_line(cfg, eng.plan)}")
                 print(f"engine=continuous backend={b}: {m['requests']} requests, "
                       f"{m['total_tokens']} tokens in {m['wall_s']:.2f}s "
                       f"({m['tok_s']:.1f} tok/s); ttft mean {m['ttft_mean_s']:.3f}s, "

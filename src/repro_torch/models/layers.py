@@ -23,6 +23,8 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def salr_cfg_for(cfg: ArchConfig) -> SALRConfig:
+    """The compression config of every target family (attn, mlp and the
+    MoE expert stacks alike)."""
     s = cfg.salr
     # a quantized decode repr needs the twin, so it switches dual_repr on
     dual = s.dual_repr or s.decode_repr not in (None, "native")

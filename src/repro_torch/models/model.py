@@ -1,11 +1,13 @@
-"""Model assembly for the dense family: parameters, the serving entry
-points (``prefill``, ``decode_step``) and the slot / paged-slot caches of
-the continuous-batching engine.
+"""Model assembly for the dense and MoE decoder families: parameters, the
+serving entry points (``prefill``, ``decode_step``) and the slot /
+paged-slot caches of the continuous-batching engine.
 
 Parameters are plain dicts: ``{"embed": {"table"}, "layers": [...],
 "final_norm": {"scale"}, "lm_head": {"w"}}`` with one entry per decoder
 layer in execution order (a Python loop where the reference scans over
-stacked repeats).  Caches mirror that: ``{"layers": [{"mixer": cache}],
+stacked repeats): ``{"mixer", "mlp_norm", "mlp"}`` for a SwiGLU layer,
+``{"mixer", "moe"}`` for an MoE layer (the MoE block carries its own
+norm).  Caches mirror that: ``{"layers": [{"mixer": cache}],
 "page_table": ...}``.
 """
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execplan
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.layers import (apply_embedding, apply_lm_head, apply_mlp,
                                        apply_rmsnorm, init_embedding, init_lm_head,
                                        init_mlp, init_rmsnorm, model_dtype)
@@ -26,7 +29,8 @@ from repro_torch.models.layers import (apply_embedding, apply_lm_head, apply_mlp
 
 def layer_kinds(cfg: ArchConfig) -> list:
     """(mixer kind, mlp kind) of every decoder layer in execution order."""
-    if cfg.family != "dense" or cfg.encoder_groups or cfg.frontend:
+    if (cfg.family not in ("dense", "moe") or cfg.encoder_groups or cfg.frontend
+            or cfg.first_dense_layers):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not yet ported")
     out = []
     for g in cfg.layer_groups:
@@ -46,14 +50,19 @@ def _route(plan: Optional[execplan.ExecutionPlan], cfg: ArchConfig, phase: str):
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None):
     """Seeded random weights, every compressible linear compressed through
-    ``compress_linear``.  Runs on ``cuda`` unless ``device="cpu"``."""
+    ``compress_linear`` (an MoE expert stack through ``compress_stack``).
+    Runs on ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     layers = []
     for _, mlp in layer_kinds(cfg):
-        layers.append({"mixer": attn.init_gqa(gen, cfg, dev),
-                       "mlp_norm": init_rmsnorm(cfg.d_model, cfg, dev),
-                       "mlp": init_mlp(gen, cfg, mlp, dev)})
+        layer = {"mixer": attn.init_gqa(gen, cfg, dev)}
+        if mlp == "moe":
+            layer["moe"] = moe.init_moe(gen, cfg, dev)
+        else:
+            layer.update(mlp_norm=init_rmsnorm(cfg.d_model, cfg, dev),
+                         mlp=init_mlp(gen, cfg, mlp, dev))
+        layers.append(layer)
     return {"embed": init_embedding(gen, cfg, dev),
             "layers": layers,
             "final_norm": init_rmsnorm(cfg.d_model, cfg, dev),
@@ -67,13 +76,17 @@ def params_device(params) -> torch.device:
 def apply_layer(p, x, cfg: ArchConfig, *, mode: str, positions=None, cache=None,
                 pos=None, route=None, page_table=None, prefix_cache=None,
                 q_offset: int = 0):
-    """One block: attention then SwiGLU MLP.  Returns (x, new_cache)."""
+    """One block: attention then the SwiGLU MLP or the MoE layer (which
+    follows the route's ``moe``).  Returns (x, new_cache)."""
     x, new_mixer = attn.apply_gqa(
         p["mixer"], x, cfg, positions=positions, mode=mode,
         cache=cache["mixer"] if cache else None, pos=pos, route=route,
         page_table=page_table,
         prefix=prefix_cache["mixer"] if prefix_cache else None, q_offset=q_offset)
-    x = x + apply_mlp(p["mlp"], apply_rmsnorm(p["mlp_norm"], x, cfg.norm_eps), route)
+    if "moe" in p:
+        x = moe.apply_moe(p["moe"], x, cfg, route=route)
+    else:
+        x = x + apply_mlp(p["mlp"], apply_rmsnorm(p["mlp_norm"], x, cfg.norm_eps), route)
     return x, {"mixer": new_mixer}
 
 

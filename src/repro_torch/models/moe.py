@@ -1,0 +1,355 @@
+"""Mixture-of-Experts layer: per-token top-k routing and SALR-compressed
+expert stacks, with three expert-compute routes (the reference's
+``repro.models.moe``).
+
+Routing is strictly per token: a token's experts and combine weights are
+functions of its own router logits only, never of which tokens share the
+batch, so a prefill of S tokens, a bucket-padded engine prefill and a
+decode tick of n_slots tokens route a token alike.  Expert compute
+follows the phase's ``PhaseRoute.moe``:
+
+  ``grouped``       assignments stable-sorted by expert into block-aligned
+                    groups (``group_assignments``, on the device, no host
+                    sync); ``ops.grouped_salr_matmul`` /
+                    ``grouped_qsalr_matmul`` run gate, up and down over the
+                    grouped rows (k-way work)
+  ``decode_grid``   rows in plain token-major assignment order, a
+                    ``row_expert`` map with -1 on pad rows;
+                    ``ops.decode_salr_matmul`` / ``decode_qsalr_matmul``
+  ``dense_masked``  every expert over every token, the combine zeroing the
+                    unselected (E-way): the reference formulation
+
+Both kernel routes reduce every row in the same fixed order, so they are
+bitwise equal per row and bitwise invariant to co-batched tokens; each
+combines a token's k expert outputs in top-k slot order 0..k-1.  A
+quantized base repr (the phase's ``repr``) reads the stack's NF4 twin.
+The kernel wrappers are forward-only; shared experts (DeepSeek) come
+with the MLA slice, and the dense, masked and N:M expert kernels with the
+next MoE slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import bitmap as bm
+from repro_torch.core import execplan
+from repro_torch.core import salr
+from repro_torch.core.salr import SALRLinear
+from repro_torch.models.layers import apply_rmsnorm, init_rmsnorm, model_dtype, salr_cfg_for
+
+
+def route_tokens(router_w: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig):
+    """Per-token top-k routing.  tokens: (N, d).  Returns (top_i (N, k)
+    int64, weights (N, k) f32, keep (N, k) bool).
+
+    The logits are summed in float64 and rounded to float32: the products
+    of f32 inputs are exact in f64, so however a library orders the sum,
+    it rounds to the same f32 logit (short of a sum within ~1e-13 of a
+    rounding boundary), and a token's logits do not depend on how many
+    tokens share the product, which f32 GEMMs do not promise.  Softmax in
+    f32; top-k by a stable descending sort (the lower expert first on a
+    tie, as ``jax.lax.top_k``); an assignment below
+    ``cfg.moe_drop_threshold`` is dropped and the kept weights are
+    renormalized, their sum taken in slot order."""
+    logits = (tokens.double() @ router_w.double()).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    top_p, top_i = top_p[:, :k], top_i[:, :k]
+    keep = top_p >= cfg.moe_drop_threshold
+    w = torch.where(keep, top_p, torch.zeros((), dtype=top_p.dtype, device=top_p.device))
+    total = w[:, 0]
+    for j in range(1, k):
+        total = total + w[:, j]
+    return top_i, w / total.clamp(min=1e-9)[:, None], keep
+
+
+def combine_weights(top_i: torch.Tensor, w: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Scatter per-assignment weights into a dense (N, E) combine matrix
+    (a row's top-k experts are distinct)."""
+    c = torch.zeros((top_i.shape[0], n_experts), dtype=w.dtype, device=w.device)
+    return c.scatter_add_(1, top_i, w)
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, device):
+    """Router (d, E) f32, the MoE norm, and the gate/up (E, d, moe_d_ff)
+    and down (E, moe_d_ff, d) expert stacks, each W ~ N(0, 1/d_in),
+    compressed through ``salr.compress_stack`` when the ``expert`` target
+    is enabled (else a plain ``{"w"}`` stack in the model dtype)."""
+    if cfg.n_shared_experts:
+        raise NotImplementedError("shared experts are not yet ported "
+                                  "(they come with the MLA/deepseek slice)")
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+
+    def expert_stack(d_in, d_out):
+        w = (torch.randn((e, d_in, d_out), generator=gen) / math.sqrt(d_in)).to(device)
+        if cfg.salr.enabled and "expert" in cfg.salr.targets:
+            return salr.compress_stack(gen, w, salr_cfg_for(cfg))
+        return {"w": w.to(model_dtype(cfg))}
+
+    router = torch.randn((d, e), generator=gen) / math.sqrt(d)
+    return {"norm": init_rmsnorm(d, cfg, device),
+            "router": {"w": router.to(device=device, dtype=torch.float32)},
+            "gate": expert_stack(d, f), "up": expert_stack(d, f), "down": expert_stack(f, d)}
+
+
+# ---------------------------------------------------------------------------
+# dense_masked: every expert over every token (the reference formulation)
+# ---------------------------------------------------------------------------
+
+def _stacked_adapter_cat(stack: SALRLinear) -> tuple:
+    """A_cat (E, d_in, R) / B_cat (E, R, d_out) of an expert stack: the
+    LoRA and residual adapters concatenated along the trailing rank axes
+    (scales folded into B)."""
+    lora, res = stack.lora, stack.res
+    if res is None:
+        return lora.a, lora.b * lora.scale
+    return (torch.cat([lora.a, res.a], dim=-1),
+            torch.cat([lora.b * lora.scale, res.b * res.scale], dim=-2))
+
+
+def _expert_matmul(stack, x: torch.Tensor, base_repr=None) -> torch.Tensor:
+    """Every expert applied to its input: x (N, d_in) shared by all, or
+    (E, N, d_in) per expert.  Returns (E, N, d_out): the stack decoded
+    dense and multiplied as the reference's per-expert
+    ``_apply_reference`` does (a quantized ``base_repr`` decodes the NF4
+    twin)."""
+    if not isinstance(stack, SALRLinear):
+        return x @ stack["w"].to(x.dtype)
+    quant = salr._resolve_repr(base_repr) != "native" and stack.qbase is not None
+    w = salr.materialize_base(stack.qbase if quant else stack.base)[..., :stack.d_out]
+    a_cat, b_cat = _stacked_adapter_cat(stack)
+    return x @ w.to(x.dtype) + (x @ a_cat) @ b_cat
+
+
+def _experts_reference(p, tokens: torch.Tensor, top_i: torch.Tensor, w: torch.Tensor,
+                       cfg: ArchConfig, base_repr=None) -> torch.Tensor:
+    """E-way dense masked compute: every expert over the full token set,
+    the combine einsum zeroing the experts a token did not select.  It
+    takes the reference formulation whatever the phase's linear route
+    (under a kernel linear route the reference runs each expert's fused
+    kernel here instead; the numbers agree within ``method:*``)."""
+    cw = combine_weights(top_i, w, cfg.n_experts).to(tokens.dtype)
+    gate = _expert_matmul(p["gate"], tokens, base_repr)
+    up = _expert_matmul(p["up"], tokens, base_repr)
+    out = _expert_matmul(p["down"], torch.nn.functional.silu(gate) * up,
+                         base_repr)                                  # (E, N, d)
+    return torch.einsum("ne,end->nd", cw, out)
+
+
+# ---------------------------------------------------------------------------
+# kernel routes: grouped rows and the decode grid
+# ---------------------------------------------------------------------------
+
+class GroupedAssignments(NamedTuple):
+    """Static-shape grouping of (token, expert) assignment pairs.
+    ``tok``/``dst`` are indexed by sorted assignment position: position p
+    reads token row ``tok[p]`` and lands on grouped row ``dst[p]``;
+    ``inv`` maps assignment order back to sorted position;
+    ``tile_expert[i]`` owns grouped rows [i*block_m, (i+1)*block_m) (slack
+    tiles are clamped to expert E-1 and hold zero rows)."""
+    tok: torch.Tensor           # (A,) int64
+    inv: torch.Tensor           # (A,) int64
+    dst: torch.Tensor           # (A,) int64
+    tile_expert: torch.Tensor   # (m_pad / block_m,) int32
+    m_pad: int
+    block_m: int
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _group_block_m(n_assign: int, n_experts: int) -> int:
+    """M-tile height near the mean group size: 8 at decode, up to 128."""
+    mean = -(-n_assign // max(n_experts, 1))
+    return max(8, min(128, _round_up(mean, 8)))
+
+
+def group_assignments(top_i: torch.Tensor, n_experts: int, block_m: int) -> GroupedAssignments:
+    """Sort token-expert pairs into contiguous, ``block_m``-aligned expert
+    groups (a stable sort keeps an expert's assignments in token order),
+    on top_i's device without a host sync: ``m_pad`` is the static bound
+    ``A + min(E, A) * (block_m - 1)`` rounded up, the group sizes a
+    scatter-add (not ``bincount``, which reads the maximum back)."""
+    n, k = top_i.shape
+    a = n * k
+    dev = top_i.device
+    e_flat = top_i.reshape(a).long()
+    order = torch.argsort(e_flat, stable=True)                # sorted -> assignment
+    e_sorted = e_flat[order]
+    sizes = torch.zeros(n_experts, dtype=torch.int64, device=dev).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
+    padded = (sizes + block_m - 1) // block_m * block_m
+    ends_pad = torch.cumsum(padded, 0)
+    starts_pad = ends_pad - padded
+    starts_raw = torch.cumsum(sizes, 0) - sizes
+    arange = torch.arange(a, device=dev)
+    dst = starts_pad[e_sorted] + arange - starts_raw[e_sorted]
+    m_pad = _round_up(a + min(n_experts, a) * (block_m - 1), block_m)
+    tile_start = torch.arange(0, m_pad, block_m, device=dev)
+    tile_expert = torch.searchsorted(ends_pad, tile_start, right=True)
+    tile_expert = tile_expert.clamp(max=n_experts - 1).to(torch.int32)
+    inv = torch.empty_like(order).scatter_(0, order, arange)
+    return GroupedAssignments(tok=order // k, inv=inv, dst=dst, tile_expert=tile_expert,
+                              m_pad=m_pad, block_m=block_m)
+
+
+def _grouped_capable(stack) -> bool:
+    """Whether the reference has a grouped/decode-grid kernel for this
+    stack's base layout (its capability rule; flat bitmap storage has
+    none).  Of those the port has the tiled-bitmap ones; the others raise
+    in the kernel routes."""
+    if not isinstance(stack, SALRLinear):
+        return True
+    base = stack.base
+    if isinstance(base, (bm.TiledBitmapWeight, bm.QTiledBitmapWeight)):
+        return True
+    if isinstance(base, bm.NMWeight):
+        return not stack.transposed
+    return not isinstance(base, bm.BitmapWeight)
+
+
+def _repr_base(stack: SALRLinear, base_repr: str):
+    """The base the kernel routes stream under ``base_repr``: a quantized
+    repr reads the stacked NF4 twin where the stack has one."""
+    if base_repr != "native" and isinstance(stack.qbase, bm.QTiledBitmapWeight):
+        return stack.qbase
+    return stack.base
+
+
+def _kernel_base(stack, base_repr: str):
+    if isinstance(stack, SALRLinear):
+        base = _repr_base(stack, base_repr)
+        if isinstance(base, (bm.TiledBitmapWeight, bm.QTiledBitmapWeight)):
+            return base
+    raise NotImplementedError("the grouped and decode-grid kernels of dense, masked and "
+                              "N:M expert stacks are not yet ported (next MoE slice)")
+
+
+def _grouped_linear(stack, xs: torch.Tensor, g: GroupedAssignments,
+                    base_repr: str = "native") -> torch.Tensor:
+    from repro_torch.kernels import ops
+    base = _kernel_base(stack, base_repr)
+    a_cat, b_cat = _stacked_adapter_cat(stack)
+    op = (ops.grouped_qsalr_matmul if isinstance(base, bm.QTiledBitmapWeight)
+          else ops.grouped_salr_matmul)
+    return op(xs, g.tile_expert, base, a_cat, b_cat, block_m=g.block_m)[:, :stack.d_out]
+
+
+def _decode_grid_linear(stack, xs: torch.Tensor, row_expert: torch.Tensor,
+                        base_repr: str = "native") -> torch.Tensor:
+    from repro_torch.kernels import ops
+    base = _kernel_base(stack, base_repr)
+    a_cat, b_cat = _stacked_adapter_cat(stack)
+    op = (ops.decode_qsalr_matmul if isinstance(base, bm.QTiledBitmapWeight)
+          else ops.decode_salr_matmul)
+    return op(xs, row_expert, base, a_cat, b_cat)[:, :stack.d_out]
+
+
+def _combine(w: torch.Tensor, per: torch.Tensor) -> torch.Tensor:
+    """sum_j w[:, j] * per[:, j] taken elementwise in slot order 0..k-1 in
+    f32, the weights first rounded to the activation dtype, one rounding
+    of the sum: a fixed order per token, whatever the batch."""
+    wf = w.to(per.dtype).float()
+    pf = per.float()
+    y = wf[:, 0, None] * pf[:, 0]
+    for j in range(1, per.shape[1]):
+        y.addcmul_(wf[:, j, None], pf[:, j])
+    return y.to(per.dtype)
+
+
+def _ffn(linear, p, xs: torch.Tensor, emap, base_repr: str) -> torch.Tensor:
+    gate = linear(p["gate"], xs, emap, base_repr)
+    up = linear(p["up"], xs, emap, base_repr)
+    return linear(p["down"], torch.nn.functional.silu(gate) * up, emap, base_repr)
+
+
+def _grouped_ffn(cfg: ArchConfig, p, tokens: torch.Tensor, top_i: torch.Tensor,
+                 w: torch.Tensor, base_repr: str = "native") -> torch.Tensor:
+    """k-way expert FFN over the grouped row buffer: token rows gathered
+    into block-aligned expert groups (pad rows zero), gate/up/down as
+    grouped GEMMs, each assignment's output gathered back and combined in
+    slot order."""
+    n, k = top_i.shape
+    g = group_assignments(top_i, cfg.n_experts, _group_block_m(n * k, cfg.n_experts))
+    xs = tokens.new_zeros((g.m_pad, tokens.shape[-1]))
+    xs.index_copy_(0, g.dst, tokens.index_select(0, g.tok))
+    out = _ffn(_grouped_linear, p, xs, g, base_repr)               # (m_pad, d)
+    per = out.index_select(0, g.dst[g.inv]).reshape(n, k, -1)     # assignment order
+    return _combine(w, per)
+
+
+def _decode_grid_ffn(cfg: ArchConfig, p, tokens: torch.Tensor, top_i: torch.Tensor,
+                     w: torch.Tensor, base_repr: str = "native") -> torch.Tensor:
+    """Expert FFN over assignment-order rows: row a is token a // k's
+    assignment a % k, rows padded to a multiple of 8 with ``row_expert``
+    -1; per row bitwise equal to :func:`_grouped_ffn`."""
+    n, k = top_i.shape
+    a = n * k
+    m_pad = _round_up(a, 8)
+    xs = tokens[:, None, :].expand(n, k, tokens.shape[-1]).reshape(a, -1)
+    xs = torch.nn.functional.pad(xs, (0, 0, 0, m_pad - a))
+    row_expert = torch.nn.functional.pad(top_i.reshape(a).to(torch.int32), (0, m_pad - a),
+                                         value=-1)
+    out = _ffn(_decode_grid_linear, p, xs, row_expert, base_repr)
+    return _combine(w, out[:a].reshape(n, k, -1))
+
+
+_KERNEL_FFNS = {"grouped": _grouped_ffn, "decode_grid": _decode_grid_ffn}
+
+_ROUTE_DESCRIPTIONS = {
+    "grouped": "grouped ragged GEMM, k-way work (csrc/grouped_spmm.cu, TileMap)",
+    "decode_grid": "decode grid, each block gathering its expert's assignment rows "
+                   "(csrc/grouped_spmm.cu, RowMap)",
+    "dense_masked": "dense masked einsum over the expert stack (E-way oracle)",
+}
+
+
+def _resolve_moe_route(cfg: ArchConfig, route, backend: Optional[str]) -> str:
+    """Explicit ``route`` (a string or a threaded ``PhaseRoute``) >
+    explicit ``backend`` ("kernel": grouped, "reference": the oracle) >
+    plan scope > ``resolve_plan(cfg)``; a call with no phase context
+    resolves as prefill."""
+    if isinstance(route, execplan.PhaseRoute):
+        route = route.moe
+    if route is None and backend is not None:
+        if backend not in ("kernel", "reference"):
+            raise ValueError(f"unknown MoE backend {backend!r}")
+        route = "grouped" if backend == "kernel" else "dense_masked"
+    if route is None:
+        pl = execplan.current_override() or execplan.resolve_plan(cfg)
+        route = pl.moe_route("prefill")
+    if route not in execplan.MOE_ROUTES:
+        raise ValueError(f"unknown MoE route {route!r}")
+    return route
+
+
+def moe_route_description(cfg: ArchConfig, route) -> str:
+    """What an MoE layer runs under ``route`` (a string or PhaseRoute)."""
+    return _ROUTE_DESCRIPTIONS[_resolve_moe_route(cfg, route, None)]
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, route=None,
+              backend: Optional[str] = None) -> torch.Tensor:
+    """x: (B, S, d) -> x + moe(x).  Every token is routed on its own
+    (``route_tokens``); expert compute follows the resolved MoE route,
+    reading the base repr of a threaded ``PhaseRoute`` (native
+    otherwise)."""
+    b, s, d = x.shape
+    tokens = apply_rmsnorm(p["norm"], x, cfg.norm_eps).reshape(b * s, d)
+    top_i, w, _ = route_tokens(p["router"]["w"], tokens, cfg)
+    r = _resolve_moe_route(cfg, route, backend)
+    phase = route if isinstance(route, execplan.PhaseRoute) else None
+    base_repr = phase.repr if phase else "native"
+    if r != "dense_masked" and not all(_grouped_capable(p[t]) for t in ("gate", "up", "down")):
+        r = "dense_masked"
+    if r == "dense_masked":
+        y = _experts_reference(p, tokens, top_i, w, cfg, base_repr=base_repr)
+    else:
+        y = _KERNEL_FFNS[r](cfg, p, tokens, top_i, w, base_repr)
+    return x + y.reshape(b, s, d).to(x.dtype)

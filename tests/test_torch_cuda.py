@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import bitmap as tbm
 from repro_torch.core import prune
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 
 # kernel and plain version both sum in f32 and round once: only the
 # summation order differs (in bf16 it flips the rounding of a few
@@ -248,3 +250,137 @@ def test_wrappers_launch_and_count(cuda):
         assert ops.LAUNCHES[name] == before[name] + 1
     with pytest.raises(TypeError):
         ops.nm_matmul(x.to(torch.bfloat16), nmw)
+
+
+def _expert_stacks(cuda, gen, dtype, n_exp, k, n, r):
+    """An expert stack (tiled bitmap, p = 0.5) with its NF4 twin and
+    adapters A_cat (E, K, R), B_cat (E, R, N)."""
+    from repro_torch.core import salr
+    w = torch.randn((n_exp * k, n), generator=gen, device=cuda) / k ** 0.5
+    flat, _ = salr._tiled_encode(w.to(dtype), salr.SALRConfig())
+    tbw = tbm.TiledBitmapWeight(words=flat.words.reshape(n_exp, k, *flat.words.shape[1:]),
+                                values=flat.values.reshape(n_exp, k, *flat.values.shape[1:]),
+                                cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
+    q, _ = tbm.tile_quantize_nf4(tbw)
+    a = (torch.randn((n_exp, k, r), generator=gen, device=cuda) / k ** 0.5).to(dtype)
+    b = (torch.randn((n_exp, r, n), generator=gen, device=cuda) / r ** 0.5).to(dtype)
+    return {"salr": tbw, "qsalr": q}, a, b
+
+
+def _expert_rows(gen, cuda, x, n_exp, topk):
+    """(top_i, grouped assignments, grouped rows, decode rows, row map)
+    for the tokens x."""
+    n_tok = x.shape[0]
+    top_i = torch.rand((n_tok, n_exp), generator=gen, device=cuda).argsort(dim=1)[:, :topk]
+    g = moe.group_assignments(top_i, n_exp, moe._group_block_m(n_tok * topk, n_exp))
+    xs = x.new_zeros((g.m_pad, x.shape[1]))
+    xs.index_copy_(0, g.dst, x.index_select(0, g.tok))
+    return top_i, g, xs, x.repeat_interleave(topk, dim=0), top_i.reshape(-1).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,r", [(1024, 512, 128), (512, 1024, 128), (100, 200, 24)])
+def test_expert_kernels_match_plain_bitwise_across_routes(cuda, k, n, r, dtype):
+    """grouped_/decode_(q)salr_spmm vs their plain versions (E 32, top-8);
+    the grouped and decode outputs bitwise equal per assignment row; a
+    row bitwise the same at 1, 4, 8 and 33 tokens as in a 64-token call."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    stacks, a, b = _expert_stacks(cuda, gen, dtype, 32, k, n, r)
+    x = (torch.randn((64, k), generator=gen, device=cuda) / 4).to(dtype)
+    top_i, g, xs, xd, row_e = _expert_rows(gen, cuda, x, 32, 8)
+    for kind, st in stacks.items():
+        grouped = getattr(ops, f"grouped_{kind}_matmul")
+        decode = getattr(ops, f"decode_{kind}_matmul")
+        yg = grouped(xs, g.tile_expert, st, a, b, block_m=g.block_m)
+        yd = decode(xd, row_e, st, a, b)
+        # the plain versions take B_cat at the encoded width
+        bp = torch.nn.functional.pad(b, (0, st.cols - n))
+        assert _close(yg, getattr(ref, f"grouped_{kind}_spmm_ref")(
+            xs, g.tile_expert, st, a, bp, g.block_m), dtype)
+        assert _close(yd, getattr(ref, f"decode_{kind}_spmm_ref")(xd, row_e, st, a, bp), dtype)
+        assert torch.equal(yg[g.dst[g.inv]], yd)
+        for n_sub in (1, 4, 8, 33):
+            rows = n_sub * 8
+            assert torch.equal(decode(xd[:rows], row_e[:rows], st, a, b), yd[:rows])
+            gs = moe.group_assignments(top_i[:n_sub], 32, moe._group_block_m(rows, 32))
+            xsub = x.new_zeros((gs.m_pad, k))
+            xsub.index_copy_(0, gs.dst, x[:n_sub].index_select(0, gs.tok))
+            ys = grouped(xsub, gs.tile_expert, st, a, b, block_m=gs.block_m)
+            assert torch.equal(ys[gs.dst[gs.inv]], yd[:rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernels_pad_rows_and_planted_faults(cuda, dtype):
+    """Decode pad rows (-1, and rows past the map) come out exactly zero
+    with NaN in their x rows; grouped pad and slack rows exactly zero from
+    zero x, and NaN there changes no real row.  In bf16 the limit rejects
+    u left unrounded and a tile reading its neighbour expert's weights."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    stacks, a, b = _expert_stacks(cuda, gen, dtype, 32, 512, 512, 128)
+    x = (torch.randn((8, 512), generator=gen, device=cuda) / 4).to(dtype)
+    _, g, xs, xd, row_e = _expert_rows(gen, cuda, x, 32, 8)
+    pad = torch.ones(xs.shape[0], dtype=torch.bool, device=cuda)
+    pad[g.dst] = False
+    for kind, st in stacks.items():
+        grouped = getattr(ops, f"grouped_{kind}_matmul")
+        decode = getattr(ops, f"decode_{kind}_matmul")
+        yd = decode(xd, row_e, st, a, b)
+        junk_rows = torch.full((8, 512), float("nan"), dtype=dtype, device=cuda)
+        row_e_pad = torch.cat([row_e[:-1], torch.tensor([-1], dtype=torch.int32, device=cuda)])
+        xj = torch.cat([xd, junk_rows])
+        xj[row_e.shape[0] - 1] = float("nan")
+        yj = decode(xj, row_e_pad, st, a, b)
+        assert not yj[row_e.shape[0] - 1:].any()
+        assert torch.equal(yj[:row_e.shape[0] - 1], yd[:-1])
+        yg = grouped(xs, g.tile_expert, st, a, b, block_m=g.block_m)
+        assert not yg[pad].any()
+        junk = xs.clone()
+        junk[pad] = float("nan")
+        assert torch.equal(grouped(junk, g.tile_expert, st, a, b, block_m=g.block_m)[~pad],
+                           yg[~pad])
+        if dtype == torch.bfloat16:
+            plain = getattr(ref, f"grouped_{kind}_spmm_ref")
+            y_ref = plain(xs, g.tile_expert, st, a, b, g.block_m)
+            assert _close(yg, y_ref, dtype)
+            assert not _close(plain(xs, g.tile_expert, st, a, b.float(), g.block_m).to(dtype),
+                              y_ref, dtype)
+            moved = g.tile_expert.clone()
+            moved[0] = (moved[0] + 1) % 32
+            assert not _close(plain(xs, moved, st, a, b, g.block_m), y_ref, dtype)
+
+
+def test_route_tokens_rows_invariant_on_card(cuda):
+    """A token's experts and weights are bitwise the same routed alone or
+    among 4, 8, 33 or 1024 tokens (granite's router shape, E 32, top-8)."""
+    cfg = configs.get("granite_moe_1b_a400m")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    router = torch.randn((1024, 32), generator=gen, device=cuda) / 32
+    for dtype in (torch.float32, torch.bfloat16):
+        tokens = torch.randn((1024, 1024), generator=gen, device=cuda).to(dtype)
+        ti, w, _ = moe.route_tokens(router, tokens, cfg)
+        for m in (1, 4, 8, 33, 1024):
+            for start in {0, 1024 - m, 517 % (1025 - m)}:
+                ts, ws, _ = moe.route_tokens(router, tokens[start:start + m], cfg)
+                assert torch.equal(ts, ti[start:start + m]) and torch.equal(ws, w[start:start + m])
+
+
+def test_expert_wrappers_launch_and_count(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    stacks, a, b = _expert_stacks(cuda, gen, torch.float32, 4, 64, 64, 8)
+    x = torch.randn((16, 64), generator=gen, device=cuda)
+    te = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    re_ = torch.tensor([0, 3, -1, 2] * 4, dtype=torch.int32, device=cuda)
+    before = dict(ops.LAUNCHES)
+    for kind, st in stacks.items():
+        getattr(ops, f"grouped_{kind}_matmul")(x, te, st, a, b, block_m=8)
+        getattr(ops, f"decode_{kind}_matmul")(x, re_, st, a, b)
+        # a rank-0 stack: no adapter term
+        y0 = getattr(ops, f"decode_{kind}_matmul")(x, re_, st, a[..., :0], b[:, :0])
+        y0_ref = getattr(ref, f"decode_{kind}_spmm_ref")(x, re_, st, None, None)
+        assert _close(y0, y0_ref, torch.float32)
+    for name in ("grouped_salr_spmm", "grouped_qsalr_spmm"):
+        assert ops.LAUNCHES[name] == before[name] + 1
+    for name in ("decode_salr_spmm", "decode_qsalr_spmm"):
+        assert ops.LAUNCHES[name] == before[name] + 2
+    with pytest.raises(TypeError):
+        ops.decode_salr_matmul(x.to(torch.bfloat16), re_, stacks["salr"], a, b)

@@ -21,7 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 _WRAPPERS = ("salr_matmul", "bitmap_matmul", "paged_gqa_attention", "qsalr_matmul",
              "ring_quant_gqa_attention", "paged_quant_gqa_attention",
              "ring_nf4_gqa_attention", "paged_nf4_gqa_attention", "nm_matmul",
-             "lora_matmul", "nf4_matmul")
+             "lora_matmul", "nf4_matmul", "grouped_salr_matmul", "grouped_qsalr_matmul",
+             "decode_salr_matmul", "decode_qsalr_matmul")
 
 
 def _fields(obj):
@@ -36,6 +37,7 @@ def _fields(obj):
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copies_equal_reference(smoke):
+    assert tconfigs.PORTED == ["smollm_135m", "granite_moe_1b_a400m"]
     for name in tconfigs.PORTED:
         t, j = tconfigs.get(name, smoke=smoke), jconfigs.get(name, smoke=smoke)
         assert _fields(t) == _fields(j)
@@ -55,6 +57,7 @@ def test_port_imports_neither_jax_nor_reference():
     jax or repro (checked in a fresh interpreter)."""
     mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
                   for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert {"repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
@@ -114,9 +117,9 @@ def test_unported_routes_raise():
     plan = execplan.resolve_plan(quant)
     assert (plan.kv_dtype("prefill"), plan.kv_dtype("decode")) == ("int8", "nf4")
     assert (plan.base_repr("prefill"), plan.base_repr("decode")) == ("native", "bitmap_nf4")
-    assert execplan.PhaseRoute("kernel", repr="nf4").repr == "nf4"
+    assert execplan.PhaseRoute("kernel", "grouped", repr="nf4").repr == "nf4"
     with pytest.raises(ValueError, match="unknown KV dtype"):
-        execplan.PhaseRoute("kernel", kv_dtype="fp8")
+        execplan.PhaseRoute("kernel", "grouped", kv_dtype="fp8")
     plan = execplan.resolve_plan(cfg)
     assert (plan.linear_backend("prefill"), plan.kv_layout("decode")) == ("kernel", "paged")
     assert plan.linear_backend("train") == "reference"

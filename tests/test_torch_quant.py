@@ -312,8 +312,8 @@ _PLANS = {"native": {}, "kv_cache int8": {"kv_cache": "int8"},
 @pytest.mark.parametrize("backend", ["kernel", "reference"])
 @pytest.mark.parametrize("case", list(_PLANS))
 def test_resolve_plan_describe_equal_reference(case, backend):
-    """Every field the port's routes carry resolves as the reference's
-    (the reference's ``moe`` routes and crossover table are not ported)."""
+    """Every field the port's plans carry resolves as the reference's,
+    the ``moe`` routes and the crossover table included."""
     kw = dict(_PLANS[case])
     out = []
     for configs in (jconfigs, tconfigs):
@@ -324,8 +324,8 @@ def test_resolve_plan_describe_equal_reference(case, backend):
         out.append(cfg)
     jd = jplan.resolve_plan(out[0], backend=backend).describe()
     td = tplan.resolve_plan(out[1], backend=backend).describe()
-    assert {ph: {f: jd[ph][f] for f in td[ph]} for ph in tplan.PHASES} == td
-    assert set(td["decode"]) == {"linear", "kv", "repr", "kv_dtype"}
+    assert td == jd
+    assert set(td["decode"]) == {"linear", "moe", "kv", "repr", "kv_dtype"}
 
 
 def _decode_cache_from_reference(jcfg, tcfg, jc, kv: str, s: int, ctx: int):
