@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 Phases (any failure exits non-zero before the result line):
 
 1. Card and build: the card's name and power limit, then the eight CUDA
-   sources of ``src/repro_torch/csrc`` (fifteen kernels) built with nvcc,
+   sources of ``src/repro_torch/csrc`` (nineteen kernels) built with nvcc,
    one process per source, in parallel.
 2. Kernel vs plain version, in bf16 and in f32 with TF32 off, held to
    the plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32
@@ -32,17 +32,20 @@ Phases (any failure exits non-zero before the result line):
    1024, and ``nf4_spmm`` at the smoke width's padded shape (96 columns
    -> 128); the bf16 limit must reject one planted fault each: values
    read at the inclusive popcount, u left unrounded, the dequantized
-   weight left unrounded.  The four expert-stack kernels
-   (``grouped_salr_spmm``, ``grouped_qsalr_spmm``, ``decode_salr_spmm``,
-   ``decode_qsalr_spmm``) at granite_moe_1b_a400m's gate/up and down
-   stacks (E 32, top-8, R 128) at the rows the main path gives them
-   (grouped: 64 and 8192 assignment rows; decode: 64 and 1024), with two
-   planted faults each (u unrounded; a tile reading its neighbour
-   expert's weights), grouped and decode bitwise equal per row, rows
-   bitwise independent of the token count (1, 4, 8, 33, 128), decode pad
-   rows exactly zero with NaN in their x rows.  Each is timed (profiler
-   device time, L2 flushed before every launch) beside the plain version
-   and one library call as a yardstick.
+   weight left unrounded.  The eight expert-stack kernels, grouped and
+   decode grid over a tiled bitmap (``grouped_salr_spmm``,
+   ``decode_salr_spmm``), its NF4 twin (``*_qsalr_spmm``), a masked
+   dense stack (``*_dense_spmm``) and a 2:4 stack (``*_nm_spmm``), at
+   granite_moe_1b_a400m's gate/up and down stacks (E 32, top-8, R 128) at
+   the rows the main path gives them (grouped: 64 and 8192 assignment
+   rows; decode: 64 and 1024), the dense and 2:4 ones also with no
+   adapter at 64 rows, with two planted faults each (u unrounded; a tile
+   reading its neighbour expert's weights) and a third for 2:4 (values
+   read at the inclusive popcount), grouped and decode bitwise equal per
+   row, rows bitwise independent of the token count (1, 4, 8, 33, 128),
+   decode pad rows exactly zero with NaN in their x rows.  Each is timed
+   (profiler device time, L2 flushed before every launch) beside the
+   plain version and one library call as a yardstick.
 3. Main path: smollm_135m at full width, compressed once on the GPU from
    seeded dense weights with the NF4 twin (``dual_repr``); 8 requests
    (prompt 128 sharing a 64-token prefix, 32 new tokens) served by the
@@ -62,9 +65,10 @@ Phases (any failure exits non-zero before the result line):
    wiring faults beyond it (two layers' twins swapped; under int8 KV
    also ``down`` served from its native base).  Then the model
    compressed anew under two more SALR methods, served the same way:
-   (A) ``method="nm"`` (2:4), whose prefill logits of the kernel route
-   must lie within ``ROUTE_TOL`` of the reference route and wo/down's
-   adapter term dropped beyond it; (B) ``method="mask"`` with
+   (A) ``method="nm"`` (2:4) at ``NM_LAYERS`` = 10 of its 30 layers,
+   whose prefill logits of the kernel route must lie within
+   ``ROUTE_TOL`` of the reference route and wo/down's adapter term
+   dropped beyond it; (B) ``method="mask"`` with
    ``decode_repr="nf4"``, whose replayed decode logits must lie within
    ``TWIN_ROUTE_TOL`` of the reference route and ``down`` served from
    its native base beyond it.  Then granite_moe_1b_a400m at full width
@@ -77,26 +81,37 @@ Phases (any failure exits non-zero before the result line):
    experts) and under the NF4 twin with int8 decode KV (replayed decode
    logits within ``QROUTE_TOL``), each with two planted faults beyond the
    limit (the down experts' adapter term dropped; one layer routing to
-   top_i + 1).
-4. Launch counts, set to 0 before each of the seven runs and read after
+   top_i + 1); then granite compressed anew under (C) ``method="nm"``
+   (2:4 expert stacks: ``grouped_nm_spmm`` / ``decode_nm_spmm``) and (D)
+   ``method="mask"`` (masked dense expert stacks: ``grouped_dense_spmm``
+   / ``decode_dense_spmm``), each under the native plan, served and held
+   the same way (prefill logits within ``ROUTE_TOL`` of the reference
+   route, the same two planted faults beyond it).
+4. Launch counts, set to 0 before each of the nine runs and read after
    it: the native run 210 ``salr_spmm`` per forward (7 projections x 30
    layers); a quantized run 210 ``qsalr_spmm`` and 30 quantized
    attention launches per decode step and ``salr_spmm`` at prefill
-   only; (A) 150 ``salr_spmm``, 60 ``nm_spmm`` and 60 ``fused_lora``
-   per forward; (B) 60 ``nf4_spmm`` and 60 ``fused_lora`` per decode
+   only; (A) 50 ``salr_spmm``, 20 ``nm_spmm`` and 20 ``fused_lora``
+   per forward (10 layers); (B) 60 ``nf4_spmm`` and 60 ``fused_lora`` per decode
    step and no linear kernel at prefill; granite 96 ``salr_spmm`` and
    72 expert-stack launches per forward (grouped in greedy_generate,
    decode grid in the engine), 24 decode attention launches per step,
-   the twin's ``qsalr_spmm`` / ``*_qsalr_spmm`` at its decode; every
-   kernel launched at least once.
+   the twin's ``qsalr_spmm`` / ``*_qsalr_spmm`` at its decode; (C) 72
+   ``salr_spmm`` (wq/wk/wv), 24 ``nm_spmm`` and 24 ``fused_lora`` (wo)
+   per forward, 72 ``grouped_nm_spmm`` per greedy forward or 72
+   ``decode_nm_spmm`` per engine prefill or tick; (D) no attention
+   linear kernel and 72 ``grouped_dense_spmm`` / ``decode_dense_spmm``;
+   both 24 ``paged_gqa_attention`` per engine tick; every kernel launched
+   at least once.
 
 The last lines are the card (nvidia-smi), a JSON object describing each
-kernel (its launches summed over the seven main-path runs, its times at
+kernel (its launches summed over the nine main-path runs, its times at
 one decode-size call), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import math
@@ -151,6 +166,11 @@ N_REQ, PROMPT_LEN, GEN_LEN, N_SLOTS = 8, 128, 32, 4
 # the continuous engine's slots on granite_moe_1b_a400m: at 8 its decode
 # tick runs the decode-grid expert kernels (the crossover's 8-256 band)
 MOE_SLOTS = 8
+# smollm_135m's depth under method="nm" (run (A)): its 30 layers cut to
+# 10, so the whole smoke stays near 10 minutes on the H100 with granite's
+# nm and mask runs beside it (full width; the kernels and their shapes
+# per layer are those of the full model)
+NM_LAYERS = 10
 
 
 def fail(msg: str) -> None:
@@ -234,7 +254,8 @@ def _row_line(row: dict) -> str:
                                       ("unrounded values", "unrounded_values_rel_l2"),
                                       ("unrounded weight", "unrounded_weight_rel_l2"),
                                       ("inclusive popcount", "inclusive_popcount_rel_l2"),
-                                      ("neighbour expert", "neighbour_expert_rel_l2"))
+                                      ("neighbour expert", "neighbour_expert_rel_l2"),
+                                      ("no adapter, vs its plain version", "no_adapter_rel_l2"))
                     if key in row)
     times = " ".join(f"{k} {row[k]:.5f}" for k in ("ms", "plain_ms", "library_ms",
                                                      "bound_ms") if k in row)
@@ -480,16 +501,19 @@ def qsalr_checks(torch, timer, gen, rows: list) -> dict:
 
 
 def _nm_decode_inclusive(torch, nmw):
-    """A planted nm_spmm fault: each set bit's value read at the inclusive
-    popcount of its group byte (one slot late), clamped to the row."""
-    rows, n, m = nmw.rows, nmw.n, nmw.m
+    """A planted nm_spmm / grouped_ and decode_nm_spmm fault: each set
+    bit's value read at the inclusive popcount of its group byte (one slot
+    late), clamped to the row; an expert stack decodes expert by expert
+    into a dense (E, K, N) stack."""
+    n, m = nmw.n, nmw.m
+    lead = nmw.group_bits.shape[:-1]
     shifts = torch.arange(m, dtype=torch.uint8, device=nmw.group_bits.device)
-    bits = ((nmw.group_bits[:, :, None] >> shifts) & 1).bool()
+    bits = ((nmw.group_bits[..., None] >> shifts) & 1).bool()
     slot = torch.cumsum(bits.long(), dim=-1)
-    groups = torch.arange(bits.shape[1], device=bits.device)[None, :, None]
-    idx = (groups * n + slot).clamp(max=nmw.values.shape[1] - 1).reshape(rows, -1)
-    vals = torch.gather(nmw.values, 1, idx).reshape(bits.shape)
-    return torch.where(bits, vals, 0).reshape(rows, nmw.cols)
+    groups = torch.arange(bits.shape[-2], device=bits.device)[:, None]
+    idx = (groups * n + slot).clamp(max=nmw.values.shape[-1] - 1).reshape(*lead, -1)
+    vals = torch.gather(nmw.values, -1, idx).reshape(bits.shape)
+    return torch.where(bits, vals, 0).reshape(*lead, nmw.cols)
 
 
 def method_checks(torch, timer, gen, rows: list) -> dict:
@@ -593,53 +617,98 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
 # granite_moe_1b_a400m's expert stacks: (K, N) of gate/up and of down
 MOE_SHAPES = {"gate/up": (1024, 512), "down": (512, 1024)}
 MOE_EXPERTS, MOE_TOPK = 32, 8
-MOE_KERNELS = ("grouped_salr_spmm", "grouped_qsalr_spmm", "decode_salr_spmm",
-               "decode_qsalr_spmm")
+# the expert-stack kernels by base family: tiled bitmap, its NF4 twin, a
+# masked (or dense) stack, a 2:4 stack
+MOE_KINDS = ("salr", "qsalr", "dense", "nm")
+MOE_KERNELS = tuple(f"{route}_{kind}_spmm" for route in ("grouped", "decode")
+                    for kind in MOE_KINDS)
 
 
 def _moe_cost(torch, stack, row_e, k: int, n: int, r: int, es: int) -> tuple:
     """(bytes, flops) the expert-stack op needs for these rows: x and y
-    rows, and for each expert a row uses, its words, its stored nonzeros
-    (NF4: half a byte each plus an f32 scale per cell) and its A_cat /
-    B_cat at the logical width; flops 2 per stored nonzero per row of its
-    expert, plus the adapter products."""
+    rows, and for each expert a row uses, its base as stored and its
+    A_cat / B_cat at the logical width; flops 2 per weight the product
+    needs per row of its expert (a tiled or N:M expert's stored nonzeros,
+    a dense expert's K x N), plus the adapter products.  Stored bases: a
+    tiled bitmap's words and nonzeros (NF4: half a byte each plus an f32
+    scale per cell), an N:M expert's group bytes and n/m values, a dense
+    expert in full."""
     from repro_torch.core import bitmap as bm
 
-    n_exp, wpt = stack.words.shape[0], stack.words.shape[-1]
-    nnz = bm.unpack_bits(stack.words.reshape(-1, wpt), wpt * 32).reshape(n_exp, -1).sum(1)
+    n_exp = stack.shape[0] if isinstance(stack, torch.Tensor) else (
+        stack.group_bits.shape[0] if isinstance(stack, bm.NMWeight) else stack.words.shape[0])
     rows_of = torch.bincount(row_e[row_e >= 0].long(), minlength=n_exp)
     used = rows_of > 0
     a = int(rows_of.sum())
-    quant = hasattr(stack, "codes")
-    per_expert = (stack.words[0].numel() * 4 + (k * r + r * n) * es
-                  + (stack.scales[0].numel() * 4 if quant else 0))
-    value_bytes = nnz.double() / 2 if quant else nnz.double() * es
-    nbytes = (a * (k + n) * es + int(used.sum()) * per_expert
-              + float(value_bytes[used].sum()))
-    flops = 2 * float((rows_of.double() * nnz.double()).sum()) + 2 * a * r * (k + n)
+    adapters = (k * r + r * n) * es
+    if isinstance(stack, torch.Tensor):
+        nnz = torch.full((n_exp,), k * n, dtype=torch.float64, device=rows_of.device)
+        base = torch.full_like(nnz, k * n * es)
+    elif isinstance(stack, bm.NMWeight):
+        nnz = torch.full((n_exp,), k * n * stack.n / stack.m, dtype=torch.float64,
+                         device=rows_of.device)
+        base = torch.full_like(nnz, stack.group_bits[0].numel() + stack.values[0].numel() * es)
+    else:
+        wpt = stack.words.shape[-1]
+        nnz = bm.unpack_bits(stack.words.reshape(-1, wpt), wpt * 32).reshape(
+            n_exp, -1).sum(1).double()
+        quant = hasattr(stack, "codes")
+        base = (stack.words[0].numel() * 4 + (stack.scales[0].numel() * 4 if quant else 0)
+                + (nnz / 2 if quant else nnz * es))
+    nbytes = a * (k + n) * es + int(used.sum()) * adapters + float(base[used].sum())
+    flops = 2 * float((rows_of.double() * nnz).sum()) + 2 * a * r * (k + n)
     return nbytes, flops
 
 
+def _moe_stacks(torch, gen, dt, dtype_name: str, k: int, n: int) -> tuple:
+    """Expert stacks of each base family from one seeded (E, K, N) weight:
+    the tiled bitmap (p = 0.5) and its NF4 twin, the masked stack (p =
+    0.5) and the 2:4 stack, each as ``compress_stack`` encodes it; and
+    each expert decoded dense in the operand type (the yardstick's base)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import prune, salr
+    from repro_torch.kernels import ref
+
+    n_exp = MOE_EXPERTS
+    w = torch.randn((n_exp, k, n), generator=gen, device="cuda") / math.sqrt(k)
+    flat, _ = salr._tiled_encode(w.reshape(n_exp * k, n).to(dt),
+                                 salr.SALRConfig(dtype=dtype_name))
+    tbw = bm.TiledBitmapWeight(
+        words=flat.words.reshape(n_exp, k, *flat.words.shape[1:]),
+        values=flat.values.reshape(n_exp, k, *flat.values.shape[1:]),
+        cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
+    q, _ = bm.tile_quantize_nf4(tbw)
+    masked = prune.apply_mask(w, prune.magnitude_mask(w, 0.5, batch_dims=1)).to(dt)
+    nmw, _ = bm.nm_encode(w.to(dt))
+    stacks = {"salr": tbw, "qsalr": q, "dense": masked, "nm": nmw}
+    decoded = {"salr": bm.tile_decode(tbw)[..., :n],
+               "qsalr": torch.stack([bm.qtile_decode(ref._expert(q, e), dtype=dt)
+                                     for e in range(n_exp)])[..., :n],
+               "dense": masked, "nm": bm.nm_decode(nmw)}
+    return stacks, {kind: d.to(dt) for kind, d in decoded.items()}
+
+
 def moe_checks(torch, timer, gen, rows: list) -> dict:
-    """The four expert-stack kernels vs their plain versions at
+    """The eight expert-stack kernels (tiled bitmap, its NF4 twin, masked
+    dense, 2:4; grouped and decode grid) vs their plain versions at
     granite_moe_1b_a400m's expert shapes (E 32, top-8, R 128), at the rows
     the main path gives them: grouped at 64 assignment rows (8 tokens,
     block_m 8, 288 grouped rows) and 8192 (greedy_generate's prefill of
     8 x 128 tokens, block_m 128, 12288 rows); decode at 64 rows (the
-    engine's 8 slots) and 1024 (an engine prefill bucket of 128).  The
-    bf16 limit must reject two planted faults: u left unrounded, and one
-    tile (decode: one expert's rows) reading its neighbour expert's
-    weights.  Exact checks: grouped and decode bitwise equal per row on the
-    same assignments; a row bitwise the same among 1, 4, 8, 33 and 128
-    tokens; decode pad rows (-1) exactly zero with NaN in their x rows,
-    grouped pad rows exactly zero from zero x, NaN there leaving every
-    real row unchanged.  Each is timed beside its plain version and
-    ``torch.nn.functional.grouped_mm`` over the merged weights
-    W_hat + A_cat B_cat (rows sorted by expert beforehand).  The plain
-    versions loop over the experts with a host sync each; their traces are
-    so long that they are timed over 3 calls in one trace."""
-    from repro_torch.core import bitmap as bm
-    from repro_torch.core import salr
+    engine's 8 slots) and 1024 (an engine prefill bucket of 128); the
+    dense and 2:4 kernels also with no adapter at 64 rows.  The bf16
+    limit must reject the planted faults: u left unrounded, one tile
+    (decode: one expert's rows) reading its neighbour expert's weights,
+    and (2:4) values read at the inclusive popcount.  Exact checks:
+    grouped and decode bitwise equal per row on the same assignments; a
+    row bitwise the same among 1, 4, 8, 33 and 128 tokens; decode pad rows
+    (-1) exactly zero with NaN in their x rows, grouped pad rows exactly
+    zero from zero x, NaN there leaving every real row unchanged.  Each is
+    timed beside its plain version and ``torch.nn.functional.grouped_mm``
+    over the merged weights W + A_cat B_cat (decoded beforehand; rows
+    sorted by expert beforehand).  The plain versions loop over the
+    experts with a host sync each; their traces are so long that they are
+    timed over 3 calls in one trace."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import moe
 
@@ -649,28 +718,18 @@ def moe_checks(torch, timer, gen, rows: list) -> dict:
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         for lname, (k, n) in MOE_SHAPES.items():
-            w = torch.randn((n_exp, k, n), generator=gen, device="cuda") / math.sqrt(k)
-            flat, _ = salr._tiled_encode(w.reshape(n_exp * k, n).to(dt),
-                                         salr.SALRConfig(dtype=dtype_name))
-            tbw = bm.TiledBitmapWeight(
-                words=flat.words.reshape(n_exp, k, *flat.words.shape[1:]),
-                values=flat.values.reshape(n_exp, k, *flat.values.shape[1:]),
-                cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
-            q, _ = bm.tile_quantize_nf4(tbw)
+            stacks, decoded = _moe_stacks(torch, gen, dt, dtype_name, k, n)
             a = (torch.randn((n_exp, k, R_CAT), generator=gen, device="cuda")
                  / math.sqrt(k)).to(dt)
             b = (torch.randn((n_exp, R_CAT, n), generator=gen, device="cuda")
                  / math.sqrt(R_CAT)).to(dt)
-            stacks = {"salr": tbw, "qsalr": q}
             # the yardstick's weights, merged and decoded ahead: (E, K, N),
             # column-major as grouped_mm takes them
             merged = {}
             if dtype_name == "bfloat16":
-                for kind, st in stacks.items():
-                    dense = torch.stack([
-                        (bm.qtile_decode(ref._expert(st, e), dtype=dt) if kind == "qsalr"
-                         else bm.tile_decode(ref._expert(st, e))).float()
-                        + a[e].float() @ b[e].float() for e in range(n_exp)]).to(dt)
+                for kind in stacks:
+                    dense = (decoded[kind].float()
+                             + torch.bmm(a.float(), b.float())).to(dt)
                     merged[kind] = dense.transpose(1, 2).contiguous().transpose(1, 2)
             for n_tok in (8, 128, 1024):
                 x = (torch.randn((n_tok, k), generator=gen, device="cuda") / 4).to(dt)
@@ -713,11 +772,16 @@ def moe_checks(torch, timer, gen, rows: list) -> dict:
                         nbytes, flops = _moe_cost(torch, st, row_e, k, n, R_CAT,
                                                   y.element_size())
                         bound, by = _bound(nbytes, flops, dtype_name)
+                        tiled = kind in ("salr", "qsalr")
                         row = {"kernel": name, "dtype": dtype_name, "layer": lname,
-                               "tokens": n_tok, "M": xr.shape[0], "K": k, "N_pad": st.cols,
-                               "tile": st.tile, "cap_t": st.cap_t, "rel_l2": err,
-                               "max_abs_err": abs_err, "bytes": nbytes, "flops": flops,
-                               "bound_ms": bound, "bound_by": by}
+                               "tokens": n_tok, "M": xr.shape[0], "K": k,
+                               "N_pad": st.cols if tiled else n,
+                               **({"tile": st.tile, "cap_t": st.cap_t} if tiled else {}),
+                               "rel_l2": err, "max_abs_err": abs_err, "bytes": nbytes,
+                               "flops": flops, "bound_ms": bound, "bound_by": by}
+                        if kind in ("dense", "nm") and n_tok == 8:
+                            _moe_no_adapter(torch, row, name, op, plain_fn, xr, emap, st, kw,
+                                            dtype_name)
                         if dtype_name == "bfloat16":
                             _moe_faults(torch, row, name, route, plain_fn, xr, emap, st, a, b,
                                         kw, y_ref, n_exp)
@@ -731,8 +795,9 @@ def moe_checks(torch, timer, gen, rows: list) -> dict:
                             if lname == "gate/up" and n_tok == 8:
                                 s.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
                                                                  "bound_ms", "bound_by")})
-                                s["shape"] = (f"bf16 8 tokens x top-8 = 64 rows, E=32 K=1024 "
-                                              f"N=512 R=128 tile=256 cap_t={st.cap_t}")
+                                s["shape"] = ("bf16 8 tokens x top-8 = 64 rows, E=32 K=1024 "
+                                              "N=512 R=128"
+                                              + (f" tile=256 cap_t={st.cap_t}" if tiled else ""))
                         rows.append(row)
                         print(_row_line(row))
                     # grouped == decode, bitwise, per assignment row
@@ -748,6 +813,18 @@ def moe_checks(torch, timer, gen, rows: list) -> dict:
     print("phase 2: expert-stack kernels: grouped == decode bitwise per row, rows "
           "independent of the token count, pad rows exactly zero")
     return summary
+
+
+def _moe_no_adapter(torch, row, name, op, plain_fn, xr, emap, st, kw, dtype_name):
+    """The kernel with no adapter (a plain ``{"w"}`` stack, ``method="dense"``
+    with rank 0) vs its plain version."""
+    y0, y0_ref = op(xr, emap, st, None, None, **kw), plain_fn(xr, emap, st, None, None, **kw)
+    torch.cuda.synchronize()
+    err = rel_l2(torch, y0, y0_ref)
+    row["no_adapter_rel_l2"] = err
+    if not (err <= TOL[dtype_name]) or not torch.isfinite(y0).all():
+        fail(f"{name} {dtype_name} without adapter rows={xr.shape[0]}: rel-L2 {err:.3e} > "
+             f"{TOL[dtype_name]:.0e}")
 
 
 def _grouped_mm_call(torch, xsort, w_merged, offs):
@@ -767,18 +844,26 @@ def _grouped_mm_call(torch, xsort, w_merged, offs):
 
 
 def _moe_faults(torch, row, name, route, plain_fn, xr, emap, st, a, b, kw, y_ref, n_exp):
-    """Two planted faults the bf16 limit must reject: u left unrounded
-    (B_cat handed over in f32), and one tile (decode: the rows of one
-    expert) reading its neighbour expert's weights."""
-    unrounded = plain_fn(xr, emap, st, a, b.float(), **kw).to(y_ref.dtype)
+    """The planted faults the bf16 limit must reject: u left unrounded
+    (B_cat handed over in f32), one tile (decode: the rows of one expert)
+    reading its neighbour expert's weights, and for a 2:4 stack the values
+    read at the inclusive popcount (the dense plain version over the
+    misdecoded stack)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.kernels import ref
+
+    faults = {"unrounded_u_rel_l2": plain_fn(xr, emap, st, a, b.float(), **kw).to(y_ref.dtype)}
     moved = emap.clone()
     if route == "grouped":
         moved[0] = (moved[0] + 1) % n_exp           # the first tile holds real rows
     else:
         moved[emap == emap[0]] = (emap[0] + 1) % n_exp
-    neighbour = plain_fn(xr, moved, st, a, b, **kw)
-    for key, fault in (("unrounded_u_rel_l2", unrounded),
-                       ("neighbour_expert_rel_l2", neighbour)):
+    faults["neighbour_expert_rel_l2"] = plain_fn(xr, moved, st, a, b, **kw)
+    if isinstance(st, bm.NMWeight):
+        dense_fn = getattr(ref, f"{route}_dense_spmm_ref")
+        faults["inclusive_popcount_rel_l2"] = dense_fn(xr, emap, _nm_decode_inclusive(torch, st),
+                                                       a, b, **kw)
+    for key, fault in faults.items():
         err = rel_l2(torch, fault, y_ref)
         row[key] = err
         if not err > TOL["bfloat16"]:
@@ -1109,8 +1194,8 @@ def _engine_line(label: str, greedy, batch_s: float, metrics: dict, peak: int) -
 
 
 def nm_path(torch, dev, seed: int, prompts, rows: list) -> tuple:
-    """(A) method="nm" (2:4), native plan: the model compressed anew from
-    the same seed; wq/wk/wv/gate/up take their N:M masks along d_in and
+    """(A) method="nm" (2:4), native plan, at ``NM_LAYERS`` layers: the
+    model compressed anew from the same seed; wq/wk/wv/gate/up take their N:M masks along d_in and
     run salr_spmm on tiled bitmaps, wo/down keep N:M bases and run
     nm_spmm + fused_lora.  Checks: tokens, engine vs greedy up to
     near-ties, prefill logits of the kernel route within ``ROUTE_TOL`` of
@@ -1120,8 +1205,10 @@ def nm_path(torch, dev, seed: int, prompts, rows: list) -> tuple:
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = method_cfg(method="nm")
-    label = "nm (2:4)"
+    from repro_torch.configs.base import LayerGroup
+
+    cfg = method_cfg(method="nm").with_(layer_groups=(LayerGroup(("attn",), NM_LAYERS),))
+    label = f"nm (2:4), {NM_LAYERS} layers"
     params, init_s = serve.build_params(cfg, seed, dev)
     plan = execplan.resolve_plan(cfg)
     n_req, n_layers = len(prompts), cfg.n_layers
@@ -1225,98 +1312,184 @@ def mask_nf4_path(torch, dev, seed: int, prompts, rows: list) -> tuple:
 
 def granite_paths(torch, dev, seed: int, rows: list) -> list:
     """Serve granite_moe_1b_a400m at full width (24 layers, 32 experts,
-    top-8), compressed once on the GPU from seeded weights with the NF4
-    twin of every projection and expert stack; the same 8 requests as the
-    smollm runs, under the native plan, then decode from the NF4 twin with
-    int8 decode KV (prefill native).  greedy_generate keeps its own plan
-    (prefill at 4096 tokens and decode at 1: the grouped kernels); the
-    continuous engine resolves its own at 8 slots and its largest bucket
-    (160: the decode-grid kernels), so engine vs greedy crosses the two
-    MoE routes.  Returns (path, launch counts, launches expected,
-    launches per decode step) for each run."""
+    top-8) with the same 8 requests as the smollm runs: compressed once on
+    the GPU from seeded weights with the NF4 twin of every projection and
+    expert stack, under the native plan, then decode from the NF4 twin
+    with int8 decode KV (prefill native); then compressed anew under (C)
+    ``method="nm"`` and (D) ``method="mask"``, each under the native
+    plan, each model freed before the next is built.  greedy_generate
+    keeps its own plan (prefill at 4096 tokens and decode at 1: the
+    grouped kernels); the continuous engine resolves its own at 8 slots
+    and its largest bucket (160: the decode-grid kernels), so engine vs
+    greedy crosses the two MoE routes.  Returns (path, launch counts,
+    launches expected, launches per decode step) for each run."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.core import execplan, salr
     from repro_torch.launch import serve
 
-    cfg = configs.get("granite_moe_1b_a400m")
-    cfg = cfg.with_(salr=dataclasses.replace(cfg.salr, dual_repr=True))
+    base = configs.get("granite_moe_1b_a400m")
+    prompts = serve.request_prompts(base, N_REQ, PROMPT_LEN, seed, shared_prefix=64)
+    cfg = base.with_(salr=dataclasses.replace(base.salr, dual_repr=True))
+    out = _granite_bitmap(torch, dev, seed, cfg, prompts, rows)
+    gc.collect()
+    for label, method in (("granite (C) nm (2:4)", "nm"), ("granite (D) mask", "mask")):
+        mcfg = base.with_(salr=dataclasses.replace(base.salr, method=method))
+        out.append(_granite_method(torch, dev, seed, label, mcfg, prompts, rows))
+        gc.collect()
+    return out
+
+
+def _granite_build(torch, dev, seed: int, cfg, label: str) -> tuple:
+    """Compress granite under ``cfg`` on ``dev``; print its sizes.  Returns
+    (params, compress seconds, parameter bytes, NF4 twin bytes)."""
+    from repro_torch.launch import serve
+
     params, init_s = serve.build_params(cfg, seed, dev)
     nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
     twin = sum(t.numel() * t.element_size() for lp in params["layers"]
                for part in ("mixer", "moe") for lin in lp[part].values()
-               if isinstance(lin, salr.SALRLinear) for t in (lin.qbase.codes, lin.qbase.scales))
-    print(f"phase 3: compressed {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_experts} experts, top-{cfg.experts_per_token}) with the NF4 twin on {dev} "
-          f"in {init_s:.2f}s; parameter bytes {nbytes}, of which NF4 codes and scales {twin}")
-    prompts = serve.request_prompts(cfg, N_REQ, PROMPT_LEN, seed, shared_prefix=64)
+               if getattr(lin, "qbase", None) is not None
+               for t in (lin.qbase.codes, lin.qbase.scales))
+    print(f"phase 3: {label}: compressed {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts, top-{cfg.experts_per_token}, method "
+          f"{cfg.salr.method}) on {dev} in {init_s:.2f}s; parameter bytes {nbytes}, of which "
+          f"NF4 codes and scales {twin}")
+    return params, init_s, nbytes, twin
+
+
+def _granite_faults(torch, params) -> dict:
+    """Planted faults: the adapter term of every down expert dropped; one
+    layer's router picking (top_i + 1) % E."""
+    return {"down experts' adapter term dropped": drop_adapters(torch, params, ("down",),
+                                                                part="moe"),
+            "layer 0 routes to top_i + 1": roll_router(torch, params, 0)}
+
+
+def _granite_serve(torch, label: str, cfg, params, prompts, rows: list, expected_of,
+                   faults: dict, quant: bool, row_extra: dict) -> tuple:
+    """One granite run: both engines (greedy_generate on the grouped
+    route, the engine at ``MOE_SLOTS`` slots on the decode grid), tokens,
+    parity, the route check (prefill; under a quantized plan the replayed
+    decode) with its planted faults, and the decode tick's profile.
+    ``expected_of(steps, ticks, prefills)`` gives the nonzero launch counts
+    the run must show.  Returns (launch counts, launches expected)."""
+    from repro_torch.core import execplan
+    from repro_torch.launch import serve
+
+    plan = execplan.resolve_plan(cfg)
+    greedy, batch_s, eng, results, metrics, counts, peak = serve_both(
+        torch, cfg, params, prompts, GEN_LEN, MOE_SLOTS, plan, engine_plan=None)
+    steps, ticks, prefills = GEN_LEN - 1, metrics["n_decode_ticks"], metrics["n_prefills"]
+    routes = {ph: (plan.moe_route(ph), eng.plan.moe_route(ph)) for ph in ("prefill", "decode")}
+    if routes != {"prefill": ("grouped", "decode_grid"), "decode": ("grouped", "decode_grid")}:
+        fail(f"{label}: MoE routes (greedy, engine) {routes}")
+    expected = dict.fromkeys(counts, 0)
+    expected.update(expected_of(steps, ticks, prefills))
+    print(f"phase 3: {label}: greedy_generate {serve.route_line(cfg, plan)}")
+    print(f"phase 3: {label}: continuous engine ({MOE_SLOTS} slots) "
+          f"{serve.route_line(cfg, eng.plan)}")
+    print(_engine_line(label, greedy, batch_s, metrics, peak))
+    check_tokens(label, cfg, greedy, results, N_REQ, GEN_LEN)
+    with torch.inference_mode():
+        report = serve.parity_report(cfg, params, prompts, greedy, results, plan)
+    check_parity(label, report, N_REQ)
+    row = {"main_path": label, "batch_tokens": int(greedy.size), "batch_s": batch_s,
+           "engine": {k: v for k, v in metrics.items() if k != "plan"},
+           "engine_plan": eng.plan.describe(), "peak_bytes": peak, "launches": counts,
+           "divergences": report, **row_extra}
+    if quant:
+        err, errs = decode_route_check(torch, cfg, params, prompts, greedy, plan, label,
+                                       QROUTE_TOL["int8"],
+                                       {k: (fp, True) for k, fp in faults.items()})
+        row.update(decode_kernel_vs_reference_rel_l2=err, decode_planted_faults_rel_l2=errs)
+    else:
+        err, errs = prefill_route_check(torch, cfg, params, prompts, plan, label, faults)
+        row.update(kernel_vs_reference_rel_l2=err, planted_faults_rel_l2=errs)
+    row["decode_tick"] = tick_profile(torch, eng, prompts)
+    rows.append(row)
+    return counts, expected
+
+
+def _granite_bitmap(torch, dev, seed: int, cfg, prompts, rows: list) -> list:
+    """The bitmap model with its NF4 twins: the native run and the twin
+    run with int8 decode KV."""
+    import dataclasses
+
+    params, init_s, nbytes, twin = _granite_build(torch, dev, seed, cfg, "granite bitmap")
+    faults = _granite_faults(torch, params)
     n_layers = cfg.n_layers
-    faults = {   # planted faults: the adapter term of every down expert dropped; one
-                 # layer's router picking (top_i + 1) % E
-        "down experts' adapter term dropped": drop_adapters(torch, params, ("down",),
-                                                            part="moe"),
-        "layer 0 routes to top_i + 1": roll_router(torch, params, 0),
-    }
     out = []
     for label, qcfg in (("granite native", cfg),
                         ("granite bitmap_nf4 + int8 KV", cfg.with_(
                             decode_kv_cache="int8",
                             salr=dataclasses.replace(cfg.salr, decode_repr="bitmap_nf4")))):
         quant = qcfg is not cfg
-        plan = execplan.resolve_plan(qcfg)
-        greedy, batch_s, eng, results, metrics, counts, peak = serve_both(
-            torch, qcfg, params, prompts, GEN_LEN, MOE_SLOTS, plan, engine_plan=None)
-        steps, ticks, prefills = GEN_LEN - 1, metrics["n_decode_ticks"], metrics["n_prefills"]
-        routes = {ph: (plan.moe_route(ph), eng.plan.moe_route(ph)) for ph in ("prefill", "decode")}
-        if routes != {"prefill": ("grouped", "decode_grid"), "decode": ("grouped", "decode_grid")}:
-            fail(f"{label}: MoE routes (greedy, engine) {routes}")
+        q = "q" if quant else ""
+
         # per forward: 4 attention projections (salr_spmm, the twin's
         # qsalr_spmm at a quantized decode) and 3 expert stacks per layer
         # (greedy: grouped; the engine: decode grid); one decode attention
         # per layer and decode step (greedy: the int8 ring under the twin
         # plan, plain attention under the native one; the engine: paged)
-        q = "q" if quant else ""
-        expected = dict.fromkeys(counts, 0)
-        expected.update({"salr_spmm": 4 * n_layers * (1 + prefills),
-                         "grouped_salr_spmm": 3 * n_layers,
-                         "decode_salr_spmm": 3 * n_layers * prefills})
-        expected[q + "salr_spmm"] += 4 * n_layers * (steps + ticks)
-        expected[f"grouped_{q}salr_spmm"] += 3 * n_layers * steps
-        expected[f"decode_{q}salr_spmm"] += 3 * n_layers * ticks
-        if quant:
-            expected.update({"ring_quant_gqa_attention": n_layers * steps,
-                             "paged_quant_gqa_attention": n_layers * ticks})
-        else:
-            expected["paged_gqa_attention"] = n_layers * ticks
-        print(f"phase 3: {label}: greedy_generate {serve.route_line(qcfg, plan)}")
-        print(f"phase 3: {label}: continuous engine ({MOE_SLOTS} slots) "
-              f"{serve.route_line(qcfg, eng.plan)}")
-        print(_engine_line(label, greedy, batch_s, metrics, peak))
-        check_tokens(label, cfg, greedy, results, N_REQ, GEN_LEN)
-        with torch.inference_mode():
-            report = serve.parity_report(qcfg, params, prompts, greedy, results, plan)
-        check_parity(label, report, N_REQ)
-        row = {"main_path": label, "batch_tokens": int(greedy.size), "batch_s": batch_s,
-               "engine": {k: v for k, v in metrics.items() if k != "plan"},
-               "engine_plan": eng.plan.describe(), "peak_bytes": peak, "param_bytes": nbytes,
-               "nf4_twin_bytes": twin, "compress_s": init_s, "launches": counts,
-               "divergences": report}
-        if quant:
-            err, errs = decode_route_check(torch, qcfg, params, prompts, greedy, plan, label,
-                                           QROUTE_TOL["int8"],
-                                           {k: (fp, True) for k, fp in faults.items()})
-            row.update(decode_kernel_vs_reference_rel_l2=err, decode_planted_faults_rel_l2=errs)
-        else:
-            err, errs = prefill_route_check(torch, qcfg, params, prompts, plan, label, faults)
-            row.update(kernel_vs_reference_rel_l2=err, planted_faults_rel_l2=errs)
-        row["decode_tick"] = tick_profile(torch, eng, prompts)
-        rows.append(row)
+        def expected_of(steps, ticks, prefills, q=q, quant=quant):
+            e = collections.Counter({"salr_spmm": 4 * n_layers * (1 + prefills),
+                                     "grouped_salr_spmm": 3 * n_layers,
+                                     "decode_salr_spmm": 3 * n_layers * prefills})
+            e[q + "salr_spmm"] += 4 * n_layers * (steps + ticks)
+            e[f"grouped_{q}salr_spmm"] += 3 * n_layers * steps
+            e[f"decode_{q}salr_spmm"] += 3 * n_layers * ticks
+            if quant:
+                e.update({"ring_quant_gqa_attention": n_layers * steps,
+                          "paged_quant_gqa_attention": n_layers * ticks})
+            else:
+                e["paged_gqa_attention"] = n_layers * ticks
+            return e
+        counts, expected = _granite_serve(
+            torch, label, qcfg, params, prompts, rows, expected_of, faults, quant,
+            {"param_bytes": nbytes, "nf4_twin_bytes": twin, "compress_s": init_s})
         per_step = {f"grouped_{q}salr_spmm per greedy step": 3 * n_layers,
                     f"decode_{q}salr_spmm per engine tick": 3 * n_layers,
                     f"{q}salr_spmm per decode step": 4 * n_layers}
         out.append((label, counts, expected, per_step))
     return out
+
+
+def _granite_method(torch, dev, seed: int, label: str, cfg, prompts, rows: list) -> tuple:
+    """(C) ``method="nm"``: wq/wk/wv take their 2:4 masks along d_in and run
+    salr_spmm on tiled bitmaps, wo keeps its 2:4 base (nm_spmm +
+    fused_lora), the expert stacks their 2:4 bases (grouped_nm_spmm /
+    decode_nm_spmm).  (D) ``method="mask"``: the attention projections run
+    dense GEMMs on their masked bases (no kernel), the expert stacks
+    grouped_dense_spmm / decode_dense_spmm.  Native plan; prefill logits
+    of the kernel route within ``ROUTE_TOL`` of the reference route (the
+    dense masked experts, plain attention), both planted faults beyond."""
+    params, init_s, nbytes, _ = _granite_build(torch, dev, seed, cfg, label)
+    n_layers = cfg.n_layers
+    nm = cfg.salr.method == "nm"
+    family = "nm" if nm else "dense"
+
+    # per forward: the 3 expert stacks of each layer (greedy: grouped; the
+    # engine: decode grid) and, under nm, wq/wk/wv's salr_spmm and wo's
+    # nm_spmm + fused_lora; one paged attention per layer and engine tick
+    def expected_of(steps, ticks, prefills):
+        forwards = 1 + steps + prefills + ticks
+        e = {f"grouped_{family}_spmm": 3 * n_layers * (1 + steps),
+             f"decode_{family}_spmm": 3 * n_layers * (prefills + ticks),
+             "paged_gqa_attention": n_layers * ticks}
+        if nm:
+            e.update({"salr_spmm": 3 * n_layers * forwards, "nm_spmm": n_layers * forwards,
+                      "fused_lora": n_layers * forwards})
+        return e
+    counts, expected = _granite_serve(torch, label, cfg, params, prompts, rows, expected_of,
+                                      _granite_faults(torch, params), False,
+                                      {"param_bytes": nbytes, "compress_s": init_s})
+    per_step = {f"grouped_{family}_spmm per greedy step": 3 * n_layers,
+                f"decode_{family}_spmm per engine tick": 3 * n_layers}
+    if nm:
+        per_step.update({"salr_spmm per decode step": 3 * n_layers,
+                         "nm_spmm + fused_lora per decode step": 2 * n_layers})
+    return label, counts, expected, per_step
 
 
 def prefill_route_check(torch, cfg, params, prompts, plan, label: str, faults: dict) -> tuple:
@@ -1683,7 +1856,9 @@ def main(argv=None) -> int:
                **{name: ("src/repro_torch/csrc/grouped_spmm.cu",
                          f"src/repro/kernels/grouped_spmm.py:{line}", moe_k[name])
                   for name, line in (("grouped_salr_spmm", 281), ("grouped_qsalr_spmm", 313),
-                                     ("decode_salr_spmm", 578), ("decode_qsalr_spmm", 605))}}
+                                     ("decode_salr_spmm", 578), ("decode_qsalr_spmm", 605),
+                                     ("grouped_dense_spmm", 256), ("grouped_nm_spmm", 344),
+                                     ("decode_dense_spmm", 554), ("decode_nm_spmm", 633))}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

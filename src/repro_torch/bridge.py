@@ -33,8 +33,9 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-# projections whose flat (dense, masked or N:M) base the reference stores
-# as W^T; taken from the name, as a shape cannot tell (wq is square)
+# projections of the attention block and the dense MLP whose flat (dense,
+# masked or N:M) base the reference stores as W^T; taken from the name, as
+# a shape cannot tell (wq is square).  Expert stacks are never transposed
 TRANSPOSED = ("wq", "wk", "wv", "gate", "up")
 
 
@@ -51,9 +52,9 @@ def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device,
         transposed = False
     elif key + ".base.group_bits" in flat:  # N:M, (2, 4) as the reference emits it
         bits, values = leaf(".base.group_bits"), leaf(".base.values")
-        m = SALRConfig().nm[1]
-        base = NMWeight(group_bits=bits, values=values, cols=bits.shape[1] * m,
-                        n=values.shape[1] // bits.shape[1], m=m)
+        m = SALRConfig().nm[1]              # ([E,] rows, groups): the trailing axes
+        base = NMWeight(group_bits=bits, values=values, cols=bits.shape[-1] * m,
+                        n=values.shape[-1] // bits.shape[-1], m=m)
     else:                                   # dense or masked-dense
         base = leaf(".base")
     lora = LoRAAdapter(a=leaf(".lora.a"), b=leaf(".lora.b"), scale=1.0)
@@ -68,7 +69,7 @@ def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device,
     elif key + ".qbase.codes" in flat:
         codes = leaf(".qbase.codes")
         qbase = QDenseWeight(codes=codes, scales=leaf(".qbase.scales"),
-                             shape=(codes.shape[0], d_out))
+                             shape=(codes.shape[-2], d_out))
     if lora.b.shape[-1] != d_out:
         raise ValueError(f"{key}: adapter width {lora.b.shape[-1]} != d_out {d_out}")
     return SALRLinear(base=base, lora=lora, res=res, bias=bias, d_in=lora.a.shape[-2],
@@ -83,8 +84,9 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     words-per-tile x 32, cap_t from the values, cols = n_tiles x tile),
     d_out from the config, and adapter scales are 1.0 (alpha = rank).  An
     N:M base (``.base.group_bits/values``) and a dense or masked base
-    (``.base``) are carried too, a flat base of a projection in
-    ``TRANSPOSED`` as the W^T it stores.  A layer's NF4 twin is carried
+    (``.base``) are carried too, a flat base of an attention or MLP
+    projection in ``TRANSPOSED`` as the W^T it stores (an expert stack's
+    never).  A layer's NF4 twin is carried
     when the reference emitted one: ``.qbase.words/codes/scales`` for a
     tiled base, ``.qbase.codes/scales`` (a QDenseWeight) for a dense one.
     An MoE layer's ``['moe']`` leaves are carried as one layer of
@@ -106,8 +108,8 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
                 pre = f"['groups'][{gi}][{pi}]"
 
                 def lin(sub, name, pre=pre, r=r):
-                    return _linear(flat, f"{pre}['{sub}']['{name}']", r,
-                                   widths[sub][name], cfg, dev, name in TRANSPOSED)
+                    return _linear(flat, f"{pre}['{sub}']['{name}']", r, widths[sub][name],
+                                   cfg, dev, sub != "moe" and name in TRANSPOSED)
 
                 def norm(path, pre=pre, r=r):
                     return {"scale": to_tensor(flat[f"{pre}{path}['scale']"][r], dev)}

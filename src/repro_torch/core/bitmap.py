@@ -216,48 +216,52 @@ def qtile_decode(q: QTiledBitmapWeight, dtype=torch.float32) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class NMWeight:
-    """N:M semi-structured matrix: exactly n nonzeros per m columns."""
-    group_bits: torch.Tensor    # uint8 (rows, cols//m), bit t = column m*g + t
-    values: torch.Tensor        # (rows, cols//m * n)
+    """N:M semi-structured matrix: exactly n nonzeros per m columns.  An
+    expert stack carries a leading E axis on both leaves; ``rows`` and
+    ``cols`` are one expert's."""
+    group_bits: torch.Tensor    # uint8 ([E,] rows, cols//m), bit t = column m*g + t
+    values: torch.Tensor        # ([E,] rows, cols//m * n)
     cols: int
     n: int
     m: int
 
     @property
     def rows(self) -> int:
-        return self.group_bits.shape[0]
+        return self.group_bits.shape[-2]
 
 
 def nm_encode(w: torch.Tensor, n: int = 2, m: int = 4, mask=None):
-    """Encode ``w`` (rows, cols) under an N:M mask (``prune.nm_mask`` of
-    ``w`` unless given).  Returns (NMWeight, residual W - W_hat)."""
+    """Encode ``w`` ([E,] rows, cols) under an N:M mask (``prune.nm_mask``
+    of ``w`` unless given), groups along the last axis.  Returns
+    (NMWeight, residual W - W_hat)."""
     from repro_torch.core import prune
-    rows, cols = w.shape
+    *lead, cols = w.shape
     if cols % m:
         raise ValueError(f"cols={cols} not divisible by m={m}")
     if mask is None:
         mask = prune.nm_mask(w, n=n, m=m)
-    g = mask.reshape(rows, cols // m, m)
+    g = mask.reshape(*lead, cols // m, m)
     shifts = torch.arange(m, dtype=torch.int32, device=w.device)
     group_bits = (g.to(torch.int32) << shifts).sum(dim=-1).to(torch.uint8)
     ki = g.to(torch.int64)
     slot = (torch.cumsum(ki, dim=-1) - ki).clamp(max=n - 1)   # 0..n-1 in the group
     zero = torch.zeros((), dtype=w.dtype, device=w.device)
-    kept = torch.where(g, w.reshape(rows, cols // m, m), zero)
-    values = torch.zeros((rows, cols // m, n), dtype=w.dtype, device=w.device)
+    kept = torch.where(g, w.reshape(*lead, cols // m, m), zero)
+    values = torch.zeros((*lead, cols // m, n), dtype=w.dtype, device=w.device)
     values.scatter_add_(-1, slot, kept)
-    nmw = NMWeight(group_bits=group_bits, values=values.reshape(rows, cols // m * n),
+    nmw = NMWeight(group_bits=group_bits, values=values.reshape(*lead, cols // m * n),
                    cols=cols, n=n, m=m)
     return nmw, prune.residual(w, mask)
 
 
 def nm_decode(nmw: NMWeight) -> torch.Tensor:
-    """Dense (rows, cols) decode of an N:M matrix (slots clamped to n - 1)."""
-    rows, n, m = nmw.rows, nmw.n, nmw.m
+    """Dense ([E,] rows, cols) decode of an N:M matrix (slots clamped to
+    n - 1)."""
+    n, m = nmw.n, nmw.m
     shifts = torch.arange(m, dtype=torch.uint8, device=nmw.group_bits.device)
-    bits = ((nmw.group_bits[:, :, None] >> shifts) & 1).to(torch.bool)
+    bits = ((nmw.group_bits[..., None] >> shifts) & 1).to(torch.bool)
     b = bits.to(torch.int64)
     slot = (torch.cumsum(b, dim=-1) - b).clamp(max=n - 1)
-    gathered = torch.gather(nmw.values.reshape(rows, -1, n), -1, slot)
+    gathered = torch.gather(nmw.values.reshape(*nmw.group_bits.shape, n), -1, slot)
     zero = torch.zeros((), dtype=nmw.values.dtype, device=nmw.values.device)
-    return torch.where(bits, gathered, zero).reshape(rows, nmw.cols)
+    return torch.where(bits, gathered, zero).reshape(*nmw.group_bits.shape[:-1], nmw.cols)

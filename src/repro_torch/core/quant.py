@@ -98,10 +98,10 @@ def dequantize_nf4(q: NF4Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def nf4_dequant_2d(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """The 2-D weight layout decoded: (K, N/2) interleaved codes and
-    (K, N/block) scales -> (K, N) f32, each entry level x its block's
-    scale (byte i of a row holds column 2i low, 2i+1 high)."""
-    kdim = codes.shape[0]
-    idx = torch.stack([codes & 0x0F, codes >> 4], dim=-1).reshape(kdim, -1)
-    vals = nf4_levels(codes.device)[idx.long()].reshape(kdim, scales.shape[1], -1)
-    return (vals * scales[..., None]).reshape(kdim, -1)
+    """The 2-D weight layout decoded: ([E,] K, N/2) interleaved codes and
+    ([E,] K, N/block) scales -> ([E,] K, N) f32, each entry level x its
+    block's scale (byte i of a row holds column 2i low, 2i+1 high)."""
+    lead = codes.shape[:-1]
+    idx = torch.stack([codes & 0x0F, codes >> 4], dim=-1).reshape(*lead, -1)
+    vals = nf4_levels(codes.device)[idx.long()].reshape(*scales.shape, -1)
+    return (vals * scales[..., None]).reshape(*lead, -1)

@@ -24,10 +24,12 @@ Other bases get no twin and decode from their native base.  The adapters
 are shared.
 
 An MoE expert stack is one ``SALRLinear`` whose every tensor leaf
-carries a leading E axis (``compress_stack``): a tiled-bitmap base with
-4-D words/values (all experts share ``tile`` and ``cap_t``), adapters
-(E, d_in, r) / (E, r, d_out), and the stacked NF4 twin; ``d_in`` and
-``d_out`` are one expert's.  ``models.moe`` runs it.
+carries a leading E axis (``compress_stack``), always untransposed: a
+tiled-bitmap base with 4-D words/values (all experts share ``tile`` and
+``cap_t``), an N:M base with 3-D group bits/values (groups along d_out),
+or a dense / masked (E, d_in, d_out) tensor; adapters (E, d_in, r) /
+(E, r, d_out); and the stacked NF4 twin (a tiled or dense base's);
+``d_in`` and ``d_out`` are one expert's.  ``models.moe`` runs it.
 
 ``apply_salr`` dispatches on the execution route: ``kernel`` runs the
 layer's CUDA op where one exists for its base (``bitmap_matmul`` for a
@@ -72,10 +74,10 @@ class SALRConfig:
 @dataclasses.dataclass(frozen=True)
 class QDenseWeight:
     """Dense base NF4-requantized into the 2-D kernel layout
-    (``ops.nf4_matmul``): codes (K, Np/2) uint8, interleaved, and scales
-    (K, Np/QBLOCK) f32, Np the logical column count padded up to a QBLOCK
-    multiple (padded columns quantize to exact zeros and are sliced off
-    after the GEMM)."""
+    (``ops.nf4_matmul``): codes ([E,] K, Np/2) uint8, interleaved, and
+    scales ([E,] K, Np/QBLOCK) f32, Np the logical column count padded up
+    to a QBLOCK multiple (padded columns quantize to exact zeros and are
+    sliced off after the GEMM).  ``shape`` is one expert's."""
     codes: torch.Tensor
     scales: torch.Tensor
     shape: tuple                  # logical (K, N)
@@ -113,7 +115,7 @@ def materialize_base(base) -> torch.Tensor:
     if isinstance(base, bm.NMWeight):
         return bm.nm_decode(base)
     if isinstance(base, QDenseWeight):
-        return nf4_dequant_2d(base.codes, base.scales)[:, :base.shape[1]]
+        return nf4_dequant_2d(base.codes, base.scales)[..., :base.shape[1]]
     return base                   # dense / masked-dense tensor
 
 
@@ -304,26 +306,42 @@ def compress_linear(gen: torch.Generator, w: torch.Tensor, cfg: SALRConfig,
 
 def compress_stack(gen: torch.Generator, w: torch.Tensor, cfg: SALRConfig) -> SALRLinear:
     """Compress an expert stack W (E, d_in, d_out) into one stacked
-    SALRLinear, each expert exactly as ``compress_linear`` compresses it
-    under the bitmap method: its own magnitude mask, a tiled bitmap at the
-    shared capacity ``tiled_capacity(tile, p)`` whose spill folds into its
-    own residual, a truncated-SVD residual adapter, and a fresh LoRA
-    adapter (drawn expert by expert from ``gen``).  The mask, the encode
-    and the SVD run over the whole stack at once."""
-    if cfg.method != "bitmap":
-        raise NotImplementedError(f"expert stacks under SALR method {cfg.method!r} are "
-                                  "not yet ported (bitmap)")
+    SALRLinear, each expert exactly as ``compress_linear`` compresses an
+    untransposed layer: under ``bitmap`` its own magnitude mask and a
+    tiled bitmap at the shared capacity ``tiled_capacity(tile, p)``, whose
+    spill folds into its residual; under ``nm`` 2:4 groups along d_out of
+    the cast weight; under ``mask`` its own magnitude mask taken on the
+    weight as given, then cast; under ``dense`` the cast weight and no
+    residual adapter.  Then a truncated-SVD residual adapter, a fresh LoRA
+    adapter (drawn expert by expert from ``gen``) and, with
+    ``dual_repr``, the stacked NF4 twin (``attach_qbase``).  The mask, the
+    encode and the SVD run over the whole stack at once."""
     e, d_in, d_out = w.shape
     dtype = getattr(torch, cfg.dtype)
-    wd = w.to(dtype)
-    cap_t = bm.tiled_capacity(bm.default_tile(d_out), cfg.sparsity)
-    mask = prune.magnitude_mask(wd, cfg.sparsity, batch_dims=1)
-    flat, res = _tiled_encode(wd.reshape(e * d_in, d_out), cfg,
-                              mask=mask.reshape(e * d_in, d_out), cap_t=cap_t)
-    base = bm.TiledBitmapWeight(words=flat.words.reshape(e, d_in, *flat.words.shape[1:]),
-                                values=flat.values.reshape(e, d_in, *flat.values.shape[1:]),
-                                cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
-    res_ad = _res_adapter(res.reshape(e, d_in, d_out), cfg, False, dtype)
+    res = None
+    if cfg.method == "bitmap":
+        wd = w.to(dtype)
+        cap_t = bm.tiled_capacity(bm.default_tile(d_out), cfg.sparsity)
+        mask = prune.magnitude_mask(wd, cfg.sparsity, batch_dims=1)
+        flat, res = _tiled_encode(wd.reshape(e * d_in, d_out), cfg,
+                                  mask=mask.reshape(e * d_in, d_out), cap_t=cap_t)
+        base = bm.TiledBitmapWeight(
+            words=flat.words.reshape(e, d_in, *flat.words.shape[1:]),
+            values=flat.values.reshape(e, d_in, *flat.values.shape[1:]),
+            cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
+        res = res.reshape(e, d_in, d_out)
+    elif cfg.method == "nm":
+        base, res = bm.nm_encode(w.to(dtype), n=cfg.nm[0], m=cfg.nm[1])
+    elif cfg.method == "mask":
+        mask = prune.magnitude_mask(w, cfg.sparsity, batch_dims=1)
+        base = prune.apply_mask(w, mask).to(dtype)
+        res = prune.residual(w, mask)
+    elif cfg.method == "dense":
+        base = w.to(dtype)
+    else:
+        raise NotImplementedError(f"expert stacks under SALR method {cfg.method!r} are "
+                                  "not yet ported (dense, mask, bitmap, nm)")
+    res_ad = None if res is None else _res_adapter(res, cfg, False, dtype)
     loras = [init_lora(gen, d_in, d_out, cfg.lora_rank, dtype=dtype, device=w.device)
              for _ in range(e)]
     lora = LoRAAdapter(a=torch.stack([lo.a for lo in loras]),
@@ -331,7 +349,7 @@ def compress_stack(gen: torch.Generator, w: torch.Tensor, cfg: SALRConfig) -> SA
     layer = SALRLinear(base=base, lora=lora, res=res_ad, bias=None, d_in=d_in, d_out=d_out,
                        backend=cfg.backend)
     if cfg.dual_repr:
-        layer = dataclasses.replace(layer, qbase=bm.tile_quantize_nf4(base)[0])
+        layer = dataclasses.replace(layer, qbase=attach_qbase(layer))
     return layer
 
 
@@ -342,16 +360,17 @@ def attach_qbase(layer: SALRLinear):
     sharing the words); the dense or masked base of an untransposed layer
     requantizes into the ``ops.nf4_matmul`` layout (``QDenseWeight``,
     columns zero-padded to a ``QBLOCK`` multiple, where they quantize to
-    exact zeros).  Other bases (N:M, transposed flat) get no twin: their
-    quantized route reads the native base.  The quantization error is not
-    folded into the residual adapter (the adapters are shared with the
-    native base), so the route's error is exactly the NF4 roundtrip."""
+    exact zeros), an expert stack's expert by expert.  Other bases (N:M,
+    transposed flat) get no twin: their quantized route reads the native
+    base.  The quantization error is not folded into the residual adapter
+    (the adapters are shared with the native base), so the route's error
+    is exactly the NF4 roundtrip."""
     base = layer.base
     if isinstance(base, bm.TiledBitmapWeight):
         return bm.tile_quantize_nf4(base)[0]
-    if isinstance(base, torch.Tensor) and base.ndim == 2 and not layer.transposed:
+    if isinstance(base, torch.Tensor) and base.ndim in (2, 3) and not layer.transposed:
         from repro_torch.kernels import ops
-        kdim, n = base.shape
+        kdim, n = base.shape[-2:]
         wp = torch.nn.functional.pad(base.float(), (0, (-n) % QBLOCK))
         codes, scales = ops.nf4_encode_2d(wp)
         return QDenseWeight(codes=codes, scales=scales, shape=(kdim, n))

@@ -1,26 +1,34 @@
 // grouped_spmm: the SALR op over an MoE expert stack, each row with its
 // own expert:
 //
-//     y[r] = x[r] @ W_hat[e(r)] + round(x[r] @ A_cat[e(r)]) @ B_cat[e(r)]
+//     y[r] = x[r] @ W[e(r)] + round(x[r] @ A_cat[e(r)]) @ B_cat[e(r)]
 //
-// with W_hat[e] expert e's tiled bitmap (plain or NF4 values) decoded
-// inside the GEMM.  One kernel body, templated on the value loader and on
-// how a row finds its expert:
+// with W[e] expert e's base decoded inside the GEMM.  One kernel body,
+// templated on the expert weights (how a block's slab of W[e] is read)
+// and on how a row finds its expert:
 //
-//   grouped_salr_spmm   PlainValues  TileMap  e(r) = tile_expert[r / block_m]
-//   grouped_qsalr_spmm  NF4Values    TileMap
-//   decode_salr_spmm    PlainValues  RowMap   e(r) = row_expert[r], -1: a pad row
-//   decode_qsalr_spmm   NF4Values    RowMap
+//   grouped_salr_spmm   BitmapExperts<PlainValues>  TileMap  e(r) = tile_expert[r / block_m]
+//   grouped_qsalr_spmm  BitmapExperts<NF4Values>    TileMap
+//   grouped_dense_spmm  DenseExperts                TileMap
+//   grouped_nm_spmm     NMExperts                   TileMap
+//   decode_salr_spmm    BitmapExperts<PlainValues>  RowMap   e(r) = row_expert[r], -1: a pad row
+//   decode_qsalr_spmm   BitmapExperts<NF4Values>    RowMap
+//   decode_dense_spmm   DenseExperts                RowMap
+//   decode_nm_spmm      NMExperts                   RowMap
 //
-// Replaces: src/repro/kernels/grouped_spmm.py:grouped_salr_spmm_pallas and
-// :grouped_qsalr_spmm_pallas (models/moe.py _grouped_ffn: expert-sorted,
-// block-aligned rows from group_assignments), :decode_salr_spmm_pallas and
-// :decode_qsalr_spmm_pallas (_decode_grid_ffn: rows in token-major
-// assignment order, no grouping).
+// Replaces: src/repro/kernels/grouped_spmm.py:grouped_salr_spmm_pallas,
+// :grouped_qsalr_spmm_pallas, :grouped_dense_spmm_pallas and
+// :grouped_nm_spmm_pallas (models/moe.py _grouped_ffn: expert-sorted,
+// block-aligned rows from group_assignments), :decode_salr_spmm_pallas,
+// :decode_qsalr_spmm_pallas, :decode_dense_spmm_pallas and
+// :decode_nm_spmm_pallas (_decode_grid_ffn: rows in token-major
+// assignment order, no grouping).  The dense kernels serve a masked or
+// dense stack's base (and a plain {"w"} stack, with no adapter); the N:M
+// ones a 2:4 stack, whose groups run along N, the output axis.
 //
 // Bound on the H100: bytes at decode (64 assignment rows touch ~28 of 32
-// experts: their words, stored values and adapters, ~1 MB each), a mix
-// at batch prefill (8192 rows: ~12 GFLOP against ~56 MB).
+// experts: their weights and adapters, ~0.6-1.4 MB each by family), a
+// mix at batch prefill (8192 rows: ~12-17 GFLOP against ~40-80 MB).
 //
 // Design.  The TPU's decode grid iterates experts over one M tile and
 // masks the rows each step owns, because a Pallas grid cannot gather
@@ -41,16 +49,17 @@
 // Both kernels run the row work of salr_spmm.cu (tiled_bitmap.cuh): a
 // first launch computes u = x[r] @ A_cat[e(r)] into an (M, R) scratch,
 // reduced in f32 in k order and rounded once to the operand type; the
-// second decodes W_hat[e]'s bitmap words into shared memory and reduces
-// each row over k in order, then adds u[r] @ B_cat[e][:, cols] reduced in
-// f32 and rounds y once.  One device function serves each of the three
-// pieces for both routes (rows_dense_dot, rows_bitmap_dot and the
-// adapter term through rows_dense_dot), so the grouped and decode
-// kernels are bitwise equal per row by construction, a row does not
-// depend on which rows share its block or on M, and each row equals what
-// salr_spmm gives for its expert's weights.  No library GEMM computes any
-// part.  Tensor cores (wgmma), TMA and skipping slack tiles are later
-// work.
+// second stages a BK x BN slab of W[e] into shared memory as f32 (a
+// bitmap slab decoded from its words, an N:M slab from its group bytes, a
+// dense slab as it is) and reduces each row over k in order, then adds
+// u[r] @ B_cat[e][:, cols] reduced in f32 and rounds y once.  One device
+// function serves each piece for both routes (rows_dense_dot for u, the
+// adapter term and the dense base, rows_bitmap_dot and rows_nm_dot for
+// the encoded bases), so the grouped and decode kernels are bitwise
+// equal per row by construction, a row does not depend on which rows
+// share its block or on M, and a bitmap row equals what salr_spmm gives
+// for its expert's weights.  No library GEMM computes any part.  Tensor
+// cores (wgmma), TMA and skipping slack tiles are later work.
 #include "tiled_bitmap.cuh"
 
 namespace {
@@ -123,6 +132,115 @@ __device__ __forceinline__ void rows_bitmap_dot(Smem& s, float acc[ROWS_PER_THRE
     __syncthreads();
   }
 }
+
+// Decode rows [k0, k0+BK) x cols [n0, n0+BN) of one expert's N:M weight
+// (group bytes (K, N/m), NK values per group (K, N/m*NK)) into dense f32.
+// Lane l decodes column n0+l: group g = col/m, position t there; a set
+// bit's value sits at the exclusive popcount of the bits below t in the
+// group byte, clamped to NK - 1 (core/bitmap.nm_decode).  A warp decodes
+// rows warp, warp+WARPS, ...: every row's byte load is issued, then every
+// row's value load (the lanes of one group share the byte).
+template <typename T, int NK>
+__device__ __forceinline__ void load_nm(float (*dst)[BN], const uint8_t* __restrict__ bits,
+                                        const T* __restrict__ values, int k0, int K, int n0,
+                                        int N, int m) {
+  constexpr int RPW = BK / WARPS;  // rows per warp
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int col = n0 + lane, groups = N / m;
+  const bool live = col < N;
+  const int g = live ? col / m : 0, t = live ? col % m : 0;
+  uint32_t byte[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int k = k0 + warp + WARPS * i;
+    byte[i] = (live && k < K) ? bits[(size_t)k * groups + g] : 0u;
+  }
+  float v[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int k = k0 + warp + WARPS * i;
+    const int slot = min(__popc(byte[i] & ((1u << t) - 1u)), NK - 1);
+    v[i] = ((byte[i] >> t) & 1u) ? salr::to_f32(values[((size_t)k * groups + g) * NK + slot])
+                                 : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) dst[warp + WARPS * i][lane] = v[i];
+}
+
+// acc += x[rows] @ W_hat[:, n0:n0+BN] with W_hat one expert's N:M weight.
+template <typename T, int NK>
+__device__ __forceinline__ void rows_nm_dot(Smem& s, float acc[ROWS_PER_THREAD],
+                                            const T* __restrict__ x, const int* rows,
+                                            const uint8_t* __restrict__ bits,
+                                            const T* __restrict__ values, int K, int n0, int N,
+                                            int m) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    load_rows_gather(s.a, x, rows, k0, K, K);
+    load_nm<T, NK>(s.b, bits, values, k0, K, n0, N, m);
+    __syncthreads();
+    salr::mma_stage(s, acc);
+    __syncthreads();
+  }
+}
+
+// The expert weights of a stack, one struct per base family: cols() is
+// the output width (grid x covers it in BN-column blocks) and rows_dot()
+// adds x[rows] @ W[e][:, n0:n0+BN] to acc.  kTable: the loader reads the
+// NF4 level table, which the kernel stages in shared memory and hands
+// over through with_lut().
+
+// Tiled bitmaps, words (E, K, n_tiles, wpt) and the values of V.
+template <typename T, typename V>
+struct BitmapExperts {
+  static constexpr bool kTable = V::kTable;
+  const uint32_t* __restrict__ words;
+  V vals;
+  int K, n_tiles, wpt, cap_t;
+  __host__ __device__ int cols() const { return n_tiles * wpt * 32; }
+  __device__ __forceinline__ BitmapExperts with_lut(const float* lut) const {
+    return {words, {vals.codes, vals.scales, lut, vals.cap_t}, K, n_tiles, wpt, cap_t};
+  }
+  __device__ __forceinline__ void rows_dot(Smem& s, float acc[ROWS_PER_THREAD],
+                                           const T* __restrict__ x, const int* rows, int e,
+                                           int n0) const {
+    const size_t cells = (size_t)K * n_tiles;
+    const int blk = n0 / BN;  // the block's word: word wi of column tile ti
+    rows_bitmap_dot(s, acc, x, rows, words + (size_t)e * cells * wpt,
+                    expert_values(vals, e, cells), K, n_tiles, wpt, cap_t, blk / wpt,
+                    blk % wpt);
+  }
+};
+
+// Dense experts, w (E, K, N) of the operand type.
+template <typename T>
+struct DenseExperts {
+  static constexpr bool kTable = false;
+  const T* __restrict__ w;
+  int K, N;
+  __host__ __device__ int cols() const { return N; }
+  __device__ __forceinline__ void rows_dot(Smem& s, float acc[ROWS_PER_THREAD],
+                                           const T* __restrict__ x, const int* rows, int e,
+                                           int n0) const {
+    rows_dense_dot(s, acc, x, K, rows, w + (size_t)e * K * N, K, n0, N);
+  }
+};
+
+// N:M experts (NK values per group of m), group bytes (E, K, N/m) uint8
+// and values (E, K, N/m*NK) of the operand type.
+template <typename T, int NK>
+struct NMExperts {
+  static constexpr bool kTable = false;
+  const uint8_t* __restrict__ bits;
+  const T* __restrict__ values;
+  int K, N, m;
+  __host__ __device__ int cols() const { return N; }
+  __device__ __forceinline__ void rows_dot(Smem& s, float acc[ROWS_PER_THREAD],
+                                           const T* __restrict__ x, const int* rows, int e,
+                                           int n0) const {
+    const size_t per = (size_t)K * (N / m);  // group bytes of one expert
+    rows_nm_dot<T, NK>(s, acc, x, rows, bits + e * per, values + e * per * NK, K, n0, N, m);
+  }
+};
 
 template <typename T>
 __device__ __forceinline__ void store_rows(T* __restrict__ y, const float acc[ROWS_PER_THREAD],
@@ -216,9 +334,9 @@ struct RowMap {
 
 // First launch: u[r, r0:r0+BN] = x[r] @ A_cat[e(r)][:, r0:r0+BN], one
 // rounding to T; grid (ceil(R/BN), the map's y).  Rows of no expert are
-// not written (the second launch never reads them).  V only names the op
+// not written (the second launch never reads them).  W only names the op
 // in profiles.
-template <typename T, typename V, typename Map>
+template <typename T, typename W, typename Map>
 __global__ void __launch_bounds__(THREADS)
 moe_adapter_u_kernel(const T* __restrict__ x, const T* __restrict__ a, T* __restrict__ u,
                      int K, int R, Map map) {
@@ -235,22 +353,17 @@ moe_adapter_u_kernel(const T* __restrict__ x, const T* __restrict__ a, T* __rest
 }
 
 // Second launch: y[rows, block cols] for one chunk of expert e's rows
-// (zeros for e = -1); grid (n_tiles*wpt column blocks, the map's y).
-template <typename T, typename V, typename Map>
-__device__ __forceinline__ void moe_salr_body(Smem& s, int* rows_s, int* list,
-                                              const T* __restrict__ x,
-                                              const uint32_t* __restrict__ words, const V& vals,
-                                              const T* __restrict__ u, const T* __restrict__ b,
-                                              T* __restrict__ y, int K, int R, int n_tiles,
-                                              int wpt, int cap_t, const Map& map) {
-  const int N = n_tiles * wpt * 32;
-  const int ti = blockIdx.x / wpt, wi = blockIdx.x % wpt, n0 = blockIdx.x * BN;
-  const size_t cells = (size_t)K * n_tiles;
+// (zeros for e = -1); grid (ceil(cols/BN) column blocks, the map's y).
+template <typename T, typename W, typename Map>
+__device__ __forceinline__ void moe_body(Smem& s, int* rows_s, int* list,
+                                         const T* __restrict__ x, const W& w,
+                                         const T* __restrict__ u, const T* __restrict__ b,
+                                         T* __restrict__ y, int R, const Map& map) {
+  const int N = w.cols(), n0 = blockIdx.x * BN;
   map.for_each_chunk(rows_s, list, [&](int e) {
     float acc[ROWS_PER_THREAD] = {0.f};
     if (e >= 0) {
-      rows_bitmap_dot(s, acc, x, rows_s, words + (size_t)e * cells * wpt,
-                      expert_values(vals, e, cells), K, n_tiles, wpt, cap_t, ti, wi);
+      w.rows_dot(s, acc, x, rows_s, e, n0);
       float delta[ROWS_PER_THREAD] = {0.f};
       rows_dense_dot(s, delta, u, R, rows_s, b + (size_t)e * R * N, R, n0, N);
 #pragma unroll
@@ -260,101 +373,144 @@ __device__ __forceinline__ void moe_salr_body(Smem& s, int* rows_s, int* list,
   });
 }
 
-template <typename T, typename V, typename Map>
+template <typename T, typename W, typename Map>
 __global__ void __launch_bounds__(THREADS)
-moe_salr_kernel(const T* __restrict__ x, const uint32_t* __restrict__ words, V vals,
-                const T* __restrict__ u, const T* __restrict__ b, T* __restrict__ y, int K,
-                int R, int n_tiles, int wpt, int cap_t, Map map) {
+moe_spmm_kernel(const T* __restrict__ x, W w, const T* __restrict__ u,
+                const T* __restrict__ b, T* __restrict__ y, int R, Map map) {
   __shared__ __align__(16) Smem s;
   __shared__ int rows_s[BM];
   __shared__ int list[WINDOW];
-  if constexpr (V::kTable) {
+  if constexpr (W::kTable) {
     __shared__ float lut[16];
     salr::load_nf4_table(lut);
     __syncthreads();
-    // a loader built here, so the compiler sees lut in shared memory
-    const V with_lut{vals.codes, vals.scales, lut, vals.cap_t};
-    moe_salr_body(s, rows_s, list, x, words, with_lut, u, b, y, K, R, n_tiles, wpt, cap_t, map);
+    // weights built here, so the compiler sees lut in shared memory
+    moe_body(s, rows_s, list, x, w.with_lut(lut), u, b, y, R, map);
   } else {
-    moe_salr_body(s, rows_s, list, x, words, vals, u, b, y, K, R, n_tiles, wpt, cap_t, map);
+    moe_body(s, rows_s, list, x, w, u, b, y, R, map);
   }
 }
 
 // grid_y / u_grid_y: the map's y extent for the two launches (a tile
 // count for TileMap; E + 1 and E for RowMap).
-template <typename T, typename V, typename Map>
-int launch(const void* x, const void* words, V vals, const void* a, const void* b, void* u,
-           void* y, const Map& map, int grid_y, int u_grid_y, int K, int R, int n_tiles,
-           int wpt, int cap_t, cudaStream_t stream) {
+template <typename T, typename W, typename Map>
+int launch(const void* x, const W& w, const void* a, const void* b, void* u, void* y,
+           const Map& map, int grid_y, int u_grid_y, int K, int R, cudaStream_t stream) {
   if (R > 0) {  // a rank-0 stack has no adapter term
     dim3 grid_u((R + BN - 1) / BN, u_grid_y);
-    moe_adapter_u_kernel<T, V, Map><<<grid_u, THREADS, 0, stream>>>(
+    moe_adapter_u_kernel<T, W, Map><<<grid_u, THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), K, R, map);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(n_tiles * wpt, grid_y);
-  moe_salr_kernel<T, V, Map><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(words), vals,
-      static_cast<const T*>(u), static_cast<const T*>(b), static_cast<T*>(y), K, R, n_tiles,
-      wpt, cap_t, map);
+  dim3 grid((w.cols() + BN - 1) / BN, grid_y);
+  moe_spmm_kernel<T, W, Map><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), w, static_cast<const T*>(u), static_cast<const T*>(b),
+      static_cast<T*>(y), R, map);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The four entries differ in the loader and the map; dispatch the dtype.
-template <template <typename> class Values, typename Map, typename Make>
-int dispatch(int dtype, const Make& make, const void* x, const void* words, const void* a,
-             const void* b, void* u, void* y, const Map& map, int grid_y, int u_grid_y, int K,
-             int R, int n_tiles, int wpt, int cap_t, int device, void* stream) {
+template <typename T>
+struct Tag {};
+
+// The entries differ in the weights and the map; dispatch the dtype.
+// make(Tag<T>) fills the weights of operand type T from the entry's
+// pointers.
+template <typename Make, typename Map>
+int dispatch(int dtype, const Make& make, const void* x, const void* a, const void* b, void* u,
+             void* y, const Map& map, int grid_y, int u_grid_y, int K, int R, int device,
+             void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, words, make(Values<float>{}), a, b, u, y, map, grid_y, u_grid_y, K,
-                         R, n_tiles, wpt, cap_t, st);
-  return launch<__nv_bfloat16>(x, words, make(Values<__nv_bfloat16>{}), a, b, u, y, map,
-                               grid_y, u_grid_y, K, R, n_tiles, wpt, cap_t, st);
+    return launch<float>(x, make(Tag<float>{}), a, b, u, y, map, grid_y, u_grid_y, K, R, st);
+  return launch<__nv_bfloat16>(x, make(Tag<__nv_bfloat16>{}), a, b, u, y, map, grid_y,
+                               u_grid_y, K, R, st);
 }
 
-// Fills a loader of the requested operand type from the entry's pointers.
-struct PlainMaker {
+struct PlainBitmapMaker {
+  const void* words;
   const void* values;
-  int cap_t;
+  int K, n_tiles, wpt, cap_t;
   template <typename T>
-  salr::PlainValues<T> operator()(salr::PlainValues<T>) const {
-    return {static_cast<const T*>(values), cap_t};
+  BitmapExperts<T, salr::PlainValues<T>> operator()(Tag<T>) const {
+    return {static_cast<const uint32_t*>(words), {static_cast<const T*>(values), cap_t}, K,
+            n_tiles, wpt, cap_t};
   }
 };
-struct NF4Maker {
+struct NF4BitmapMaker {
+  const void* words;
   const void* codes;
   const void* scales;
-  int cap_t;
+  int K, n_tiles, wpt, cap_t;
   template <typename T>
-  salr::NF4Values<T> operator()(salr::NF4Values<T>) const {
-    return {static_cast<const uint8_t*>(codes), static_cast<const float*>(scales), nullptr,
-            cap_t};
+  BitmapExperts<T, salr::NF4Values<T>> operator()(Tag<T>) const {
+    return {static_cast<const uint32_t*>(words),
+            {static_cast<const uint8_t*>(codes), static_cast<const float*>(scales), nullptr,
+             cap_t},
+            K, n_tiles, wpt, cap_t};
   }
 };
+struct DenseMaker {
+  const void* w;
+  int K, N;
+  template <typename T>
+  DenseExperts<T> operator()(Tag<T>) const {
+    return {static_cast<const T*>(w), K, N};
+  }
+};
+template <int NK>
+struct NMMaker {
+  const void* bits;
+  const void* values;
+  int K, N, m;
+  template <typename T>
+  NMExperts<T, NK> operator()(Tag<T>) const {
+    return {static_cast<const uint8_t*>(bits), static_cast<const T*>(values), K, N, m};
+  }
+};
+
+// n (values per group) is a template argument of the N:M weights: 1, 2
+// (2:4) and 4 are built.
+template <typename Map>
+int dispatch_nm(int n, int dtype, const void* bits, const void* values, const void* x,
+                const void* a, const void* b, void* u, void* y, const Map& map, int grid_y,
+                int u_grid_y, int K, int R, int N, int m, int device, void* stream) {
+  switch (n) {
+    case 1:
+      return dispatch(dtype, NMMaker<1>{bits, values, K, N, m}, x, a, b, u, y, map, grid_y,
+                      u_grid_y, K, R, device, stream);
+    case 2:
+      return dispatch(dtype, NMMaker<2>{bits, values, K, N, m}, x, a, b, u, y, map, grid_y,
+                      u_grid_y, K, R, device, stream);
+    case 4:
+      return dispatch(dtype, NMMaker<4>{bits, values, K, N, m}, x, a, b, u, y, map, grid_y,
+                      u_grid_y, K, R, device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
 // Common arguments.  x (M, K) with M = tiles x block_m (grouped) or any M
-// (decode); words (E, K, n_tiles, wpt) uint32; a (E, K, R); b (E, R,
-// n_tiles*wpt*32); u (M, R) scratch; y (M, n_tiles*wpt*32).  Grouped:
-// tile_expert (M / block_m,) int32.  Decode: row_expert (M,) int32, -1 on
-// pad rows.  dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal
-// of the tensors.  Each returns cudaGetLastError() after its launches.
+// (decode); a (E, K, R); b (E, R, N); u (M, R) scratch; y (M, N).
+// Grouped: tile_expert (M / block_m,) int32.  Decode: row_expert (M,)
+// int32, -1 on pad rows.  dtype: 0 = float32, 1 = bfloat16; device: the
+// CUDA ordinal of the tensors.  Each returns cudaGetLastError() after its
+// launches.
 
-// values (E, K, n_tiles, cap_t) of the operand type.
+// words (E, K, n_tiles, wpt) uint32, N = n_tiles*wpt*32; values (E, K,
+// n_tiles, cap_t) of the operand type.
 extern "C" int grouped_salr_spmm(const void* x, const void* words, const void* values,
                                  const void* a, const void* b, void* u, void* y,
                                  const void* tile_expert, int M, int K, int R, int E,
                                  int n_tiles, int wpt, int cap_t, int block_m, int dtype,
                                  int device, void* stream) {
   const TileMap map{static_cast<const int*>(tile_expert), M, E, block_m};
-  return dispatch<salr::PlainValues>(dtype, PlainMaker{values, cap_t}, x, words, a, b, u, y,
-                                     map, M / block_m, M / block_m, K, R, n_tiles, wpt, cap_t,
-                                     device, stream);
+  return dispatch(dtype, PlainBitmapMaker{words, values, K, n_tiles, wpt, cap_t}, x, a, b, u,
+                  y, map, M / block_m, M / block_m, K, R, device, stream);
 }
 
 // codes (E, K, n_tiles, cap_t/2) uint8, interleaved (slot 2i low nibble,
@@ -365,9 +521,8 @@ extern "C" int grouped_qsalr_spmm(const void* x, const void* words, const void* 
                                   int n_tiles, int wpt, int cap_t, int block_m, int dtype,
                                   int device, void* stream) {
   const TileMap map{static_cast<const int*>(tile_expert), M, E, block_m};
-  return dispatch<salr::NF4Values>(dtype, NF4Maker{codes, scales, cap_t}, x, words, a, b, u, y,
-                                   map, M / block_m, M / block_m, K, R, n_tiles, wpt, cap_t,
-                                   device, stream);
+  return dispatch(dtype, NF4BitmapMaker{words, codes, scales, K, n_tiles, wpt, cap_t}, x, a, b,
+                  u, y, map, M / block_m, M / block_m, K, R, device, stream);
 }
 
 extern "C" int decode_salr_spmm(const void* x, const void* words, const void* values,
@@ -375,8 +530,8 @@ extern "C" int decode_salr_spmm(const void* x, const void* words, const void* va
                                 const void* row_expert, int M, int K, int R, int E, int n_tiles,
                                 int wpt, int cap_t, int dtype, int device, void* stream) {
   const RowMap map{static_cast<const int*>(row_expert), M, E};
-  return dispatch<salr::PlainValues>(dtype, PlainMaker{values, cap_t}, x, words, a, b, u, y,
-                                     map, E + 1, E, K, R, n_tiles, wpt, cap_t, device, stream);
+  return dispatch(dtype, PlainBitmapMaker{words, values, K, n_tiles, wpt, cap_t}, x, a, b, u,
+                  y, map, E + 1, E, K, R, device, stream);
 }
 
 extern "C" int decode_qsalr_spmm(const void* x, const void* words, const void* codes,
@@ -385,8 +540,46 @@ extern "C" int decode_qsalr_spmm(const void* x, const void* words, const void* c
                                  int n_tiles, int wpt, int cap_t, int dtype, int device,
                                  void* stream) {
   const RowMap map{static_cast<const int*>(row_expert), M, E};
-  return dispatch<salr::NF4Values>(dtype, NF4Maker{codes, scales, cap_t}, x, words, a, b, u, y,
-                                   map, E + 1, E, K, R, n_tiles, wpt, cap_t, device, stream);
+  return dispatch(dtype, NF4BitmapMaker{words, codes, scales, K, n_tiles, wpt, cap_t}, x, a, b,
+                  u, y, map, E + 1, E, K, R, device, stream);
+}
+
+// w (E, K, N) of the operand type.
+extern "C" int grouped_dense_spmm(const void* x, const void* w, const void* a, const void* b,
+                                  void* u, void* y, const void* tile_expert, int M, int K, int R,
+                                  int E, int N, int block_m, int dtype, int device,
+                                  void* stream) {
+  const TileMap map{static_cast<const int*>(tile_expert), M, E, block_m};
+  return dispatch(dtype, DenseMaker{w, K, N}, x, a, b, u, y, map, M / block_m, M / block_m, K,
+                  R, device, stream);
+}
+
+extern "C" int decode_dense_spmm(const void* x, const void* w, const void* a, const void* b,
+                                 void* u, void* y, const void* row_expert, int M, int K, int R,
+                                 int E, int N, int dtype, int device, void* stream) {
+  const RowMap map{static_cast<const int*>(row_expert), M, E};
+  return dispatch(dtype, DenseMaker{w, K, N}, x, a, b, u, y, map, E + 1, E, K, R, device,
+                  stream);
+}
+
+// group_bits (E, K, N/m) uint8, bit t of byte g marking column m*g + t;
+// values (E, K, N/m*n) of the operand type; n in {1, 2, 4}, m <= 8.
+extern "C" int grouped_nm_spmm(const void* x, const void* bits, const void* values,
+                               const void* a, const void* b, void* u, void* y,
+                               const void* tile_expert, int M, int K, int R, int E, int N, int n,
+                               int m, int block_m, int dtype, int device, void* stream) {
+  const TileMap map{static_cast<const int*>(tile_expert), M, E, block_m};
+  return dispatch_nm(n, dtype, bits, values, x, a, b, u, y, map, M / block_m, M / block_m, K,
+                     R, N, m, device, stream);
+}
+
+extern "C" int decode_nm_spmm(const void* x, const void* bits, const void* values,
+                              const void* a, const void* b, void* u, void* y,
+                              const void* row_expert, int M, int K, int R, int E, int N, int n,
+                              int m, int dtype, int device, void* stream) {
+  const RowMap map{static_cast<const int*>(row_expert), M, E};
+  return dispatch_nm(n, dtype, bits, values, x, a, b, u, y, map, E + 1, E, K, R, N, m, device,
+                     stream);
 }
 
 extern "C" const char* error_string(int code) {

@@ -4,8 +4,8 @@ Each source compiles on its own (``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared -Xcompiler -fPIC``) into a shared library with
 a plain C interface under ``build/repro_torch_kernels/`` at the root of
 the checkout; one source may hold several kernels' entry points
-(``salr_spmm.cu`` holds two, ``quant_attention.cu`` and
-``grouped_spmm.cu`` four each).  A library's file name carries a hash
+(``salr_spmm.cu`` holds two, ``quant_attention.cu`` four and
+``grouped_spmm.cu`` eight).  A library's file name carries a hash
 of its sources and flags, so an edit rebuilds it.  A failed build
 raises; nothing falls back to the plain PyTorch versions.  Pointers and the stream cross the
 boundary as ``c_void_p``; every entry returns the CUDA error code of its
@@ -44,6 +44,10 @@ KERNELS = {
     "grouped_qsalr_spmm": ("grouped_spmm.cu", [_P] * 9 + [_I] * 10 + [_P]),
     "decode_salr_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 9 + [_P]),
     "decode_qsalr_spmm": ("grouped_spmm.cu", [_P] * 9 + [_I] * 9 + [_P]),
+    "grouped_dense_spmm": ("grouped_spmm.cu", [_P] * 7 + [_I] * 8 + [_P]),
+    "grouped_nm_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 10 + [_P]),
+    "decode_dense_spmm": ("grouped_spmm.cu", [_P] * 7 + [_I] * 7 + [_P]),
+    "decode_nm_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 9 + [_P]),
 }
 
 _LIBS: dict = {}                  # kernel name -> its loaded library

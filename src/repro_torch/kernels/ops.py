@@ -24,7 +24,8 @@ LAUNCHES = {"salr_spmm": 0, "bitmap_spmm": 0, "paged_gqa_attention": 0,
             "paged_quant_gqa_attention": 0, "ring_nf4_gqa_attention": 0,
             "paged_nf4_gqa_attention": 0, "nm_spmm": 0, "fused_lora": 0,
             "nf4_spmm": 0, "grouped_salr_spmm": 0, "grouped_qsalr_spmm": 0,
-            "decode_salr_spmm": 0, "decode_qsalr_spmm": 0}
+            "decode_salr_spmm": 0, "decode_qsalr_spmm": 0, "grouped_dense_spmm": 0,
+            "grouped_nm_spmm": 0, "decode_dense_spmm": 0, "decode_nm_spmm": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -242,13 +243,14 @@ def lora_matmul(x: torch.Tensor, a_cat: torch.Tensor, b_cat: torch.Tensor) -> to
 
 
 def nf4_encode_2d(w: torch.Tensor) -> tuple:
-    """Quantize a (K, N) weight into the 2-D NF4 layout: codes (K, N/2)
-    uint8, interleaved, and scales (K, N/QBLOCK) f32.  N % QBLOCK == 0."""
-    kdim, n = w.shape
+    """Quantize a ([E,] K, N) weight into the 2-D NF4 layout: codes ([E,]
+    K, N/2) uint8, interleaved, and scales ([E,] K, N/QBLOCK) f32 (an
+    expert stack's experts each as one 2-D weight).  N % QBLOCK == 0."""
+    *lead, n = w.shape
     if n % QBLOCK:
         raise ValueError(f"N={n} must be a multiple of {QBLOCK}")
     q = quantize_nf4(w, block=QBLOCK)
-    return q.codes.reshape(kdim, n // 2), q.scales.reshape(kdim, n // QBLOCK)
+    return q.codes.reshape(*lead, n // 2), q.scales.reshape(*lead, n // QBLOCK)
 
 
 def nf4_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -434,21 +436,53 @@ def paged_nf4_gqa_attention(q, k_pool, v_pool, ks_pool, vs_pool, page_table,
 # MoE expert stacks: the SALR op with each row on its own expert
 # ---------------------------------------------------------------------------
 
+def _stack_layout(name: str, x2: torch.Tensor, stack) -> tuple:
+    """Check an expert stack against x (M, K) by its base family; returns
+    (leaves the kernel reads, E, the output width, the family's launch
+    ints).  Tiled bitmap (plain or NF4): words (E, K, n_tiles, tile/32)
+    with values or codes/scales.  N:M: group bits (E, K, N/m) uint8,
+    values (E, K, N/m*n).  Dense: a tensor (E, K, N)."""
+    if isinstance(stack, (bm.TiledBitmapWeight, bm.QTiledBitmapWeight)):
+        _check_tiled(name, x2, stack, n_lead=1)
+        leaves = ((stack.words, stack.codes, stack.scales)
+                  if isinstance(stack, bm.QTiledBitmapWeight) else (stack.words, stack.values))
+        return (leaves, stack.words.shape[0], stack.cols,
+                (stack.n_tiles, stack.tile // 32, stack.cap_t))
+    if isinstance(stack, bm.NMWeight):
+        bits, vals = stack.group_bits, stack.values
+        n, m = stack.n, stack.m
+        if (bits.ndim != 3 or bits.shape[1] != x2.shape[1] or bits.shape[2] * m != stack.cols
+                or vals.shape != (*bits.shape[:2], bits.shape[2] * n) or not 0 < n <= m <= 8):
+            raise ValueError(f"{name}: x has K={x2.shape[1]}; group bits {tuple(bits.shape)}, "
+                             f"values {tuple(vals.shape)} do not fit a stacked {n}:{m} "
+                             f"weight (E, K, {stack.cols}) (m <= 8)")
+        if bits.dtype != torch.uint8:
+            raise TypeError(f"{name}: group bits must be uint8")
+        if vals.dtype != x2.dtype:
+            raise TypeError(f"{name}: values must be {x2.dtype}")
+        return (bits, vals), bits.shape[0], stack.cols, (stack.cols, n, m)
+    if isinstance(stack, torch.Tensor):
+        if stack.ndim != 3 or stack.shape[1] != x2.shape[1]:
+            raise ValueError(f"{name}: x has K={x2.shape[1]}; the dense stack "
+                             f"{tuple(stack.shape)} must be (E, K, N)")
+        if stack.dtype != x2.dtype:
+            raise TypeError(f"{name}: the dense stack must be {x2.dtype}")
+        return (stack,), stack.shape[0], stack.shape[2], (stack.shape[2],)
+    raise TypeError(f"{name}: no expert-stack kernel for {type(stack).__name__}")
+
+
 def _moe_matmul(name: str, x: torch.Tensor, emap: torch.Tensor, stack, a_cat, b_cat,
                 block_m: int, grouped: bool) -> torch.Tensor:
-    """Check and run one of the four expert-stack kernels.  x (..., K)
+    """Check and run one of the eight expert-stack kernels.  x (..., K)
     rows are padded with zeros to a ``block_m`` multiple; grouped: emap is
     ``tile_expert`` (M_pad / block_m,) int32; decode: ``row_expert``
     (<= M_pad,) int32, padded with -1.  A rank-0 (or absent) adapter
     means no adapter term; B_cat is zero-padded to the encoded width."""
-    quant = isinstance(stack, bm.QTiledBitmapWeight)
-    leaves = (stack.words, stack.codes, stack.scales) if quant else (stack.words, stack.values)
-    adapters = tuple(t for t in (a_cat, b_cat) if t is not None)
-    _forward_only(name, x, *leaves[1:], *adapters)
     x2, lead = _flatten(x)
-    m = x2.shape[0]
-    _check_tiled(name, x2, stack, n_lead=1)
-    n_exp = stack.words.shape[0]
+    leaves, n_exp, cols, base_ints = _stack_layout(name, x2, stack)
+    adapters = tuple(t for t in (a_cat, b_cat) if t is not None)
+    _forward_only(name, x, *leaves, *adapters)
+    m, kdim = x2.shape
     if block_m <= 0:
         raise ValueError(f"{name}: block_m {block_m} must be positive")
     x2 = torch.nn.functional.pad(x2, (0, 0, 0, (-m) % block_m))
@@ -467,12 +501,12 @@ def _moe_matmul(name: str, x: torch.Tensor, emap: torch.Tensor, stack, a_cat, b_
     if a_cat is None or a_cat.shape[-1] == 0:
         a_cat = b_cat = None
     else:
-        b_cat = torch.nn.functional.pad(b_cat, (0, stack.cols - b_cat.shape[-1]))
-        if (a_cat.shape[:2] != (n_exp, stack.rows)
-                or b_cat.shape != (n_exp, a_cat.shape[-1], stack.cols)):
+        b_cat = torch.nn.functional.pad(b_cat, (0, cols - b_cat.shape[-1]))
+        if (a_cat.shape[:2] != (n_exp, kdim)
+                or b_cat.shape != (n_exp, a_cat.shape[-1], cols)):
             raise ValueError(f"{name}: adapter shapes {tuple(a_cat.shape)} / "
-                             f"{tuple(b_cat.shape)} do not fit ({n_exp}, {stack.rows}, R) / "
-                             f"({n_exp}, R, {stack.cols})")
+                             f"{tuple(b_cat.shape)} do not fit ({n_exp}, {kdim}, R) / "
+                             f"({n_exp}, R, {cols})")
     adapters = tuple(t for t in (a_cat, b_cat) if t is not None)
     if _placement(name, x2, emap, *leaves, *adapters) == "cpu":
         plain = getattr(ref, name + "_ref")
@@ -481,20 +515,21 @@ def _moe_matmul(name: str, x: torch.Tensor, emap: torch.Tensor, stack, a_cat, b_
     else:
         if any(t.dtype != x2.dtype for t in adapters):
             raise TypeError(f"{name}: adapters must be {x2.dtype}")
+        if isinstance(stack, bm.NMWeight) and stack.n not in (1, 2, 4):
+            raise ValueError(f"{name}: the kernel is built for n = 1, 2, 4 (got {stack.n})")
         if (mp // block_m if grouped else n_exp + 1) > 65535:
             raise ValueError(f"{name}: {mp} rows in {block_m}-row tiles exceed the grid")
         code = _check_cuda(name, x2.dtype, emap, *leaves, *adapters)
         r = a_cat.shape[-1] if a_cat is not None else 0
         u = torch.empty((mp, r), dtype=x2.dtype, device=x2.device)
-        y = torch.empty((mp, stack.cols), dtype=x2.dtype, device=x2.device)
+        y = torch.empty((mp, cols), dtype=x2.dtype, device=x2.device)
         if mp:
             ptr = [t.data_ptr() for t in leaves]
             ab = [t.data_ptr() if t is not None else None for t in (a_cat, b_cat)]
             tail = (block_m,) if grouped else ()
             _launch(name, x2.device, x2.data_ptr(), *ptr, *ab, u.data_ptr(), y.data_ptr(),
-                    emap.data_ptr(), mp, stack.rows, r, n_exp, stack.n_tiles,
-                    stack.tile // 32, stack.cap_t, *tail, code)
-    return y[:m].reshape(*lead, stack.cols)
+                    emap.data_ptr(), mp, kdim, r, n_exp, *base_ints, *tail, code)
+    return y[:m].reshape(*lead, cols)
 
 
 def grouped_salr_matmul(x: torch.Tensor, tile_expert: torch.Tensor,
@@ -533,4 +568,36 @@ def decode_qsalr_matmul(x: torch.Tensor, row_expert: torch.Tensor,
                         block_m: int = 8) -> torch.Tensor:
     """:func:`decode_salr_matmul` over an expert stack's NF4 twin."""
     return _moe_matmul("decode_qsalr_spmm", x, row_expert, q, a_cat, b_cat, block_m,
+                       grouped=False)
+
+
+def grouped_dense_matmul(x: torch.Tensor, tile_expert: torch.Tensor, w: torch.Tensor,
+                         a_cat=None, b_cat=None, *, block_m: int = 128) -> torch.Tensor:
+    """:func:`grouped_salr_matmul` over a dense expert stack w (E, K, N)
+    of x's dtype (a masked stack's base, or a plain ``{"w"}`` stack with
+    no adapters); returns (..., N)."""
+    return _moe_matmul("grouped_dense_spmm", x, tile_expert, w, a_cat, b_cat, block_m,
+                       grouped=True)
+
+
+def grouped_nm_matmul(x: torch.Tensor, tile_expert: torch.Tensor, nmw: bm.NMWeight,
+                      a_cat=None, b_cat=None, *, block_m: int = 128) -> torch.Tensor:
+    """:func:`grouped_salr_matmul` over an N:M expert stack (group bits
+    (E, K, N/m) uint8, values (E, K, N/m*n), groups along N), decoded
+    inside the GEMM; returns (..., nmw.cols)."""
+    return _moe_matmul("grouped_nm_spmm", x, tile_expert, nmw, a_cat, b_cat, block_m,
+                       grouped=True)
+
+
+def decode_dense_matmul(x: torch.Tensor, row_expert: torch.Tensor, w: torch.Tensor,
+                        a_cat=None, b_cat=None, *, block_m: int = 8) -> torch.Tensor:
+    """:func:`decode_salr_matmul` over a dense expert stack w (E, K, N)."""
+    return _moe_matmul("decode_dense_spmm", x, row_expert, w, a_cat, b_cat, block_m,
+                       grouped=False)
+
+
+def decode_nm_matmul(x: torch.Tensor, row_expert: torch.Tensor, nmw: bm.NMWeight,
+                     a_cat=None, b_cat=None, *, block_m: int = 8) -> torch.Tensor:
+    """:func:`decode_salr_matmul` over an N:M expert stack."""
+    return _moe_matmul("decode_nm_spmm", x, row_expert, nmw, a_cat, b_cat, block_m,
                        grouped=False)

@@ -107,6 +107,44 @@ def decode_qsalr_spmm_ref(x: torch.Tensor, row_expert: torch.Tensor,
                             a_cat, b_cat, q.cols)
 
 
+def grouped_dense_spmm_ref(x: torch.Tensor, tile_expert: torch.Tensor, w: torch.Tensor,
+                           a_cat, b_cat, block_m: int) -> torch.Tensor:
+    """The SALR op over expert-grouped rows of a dense (E, K, N) stack:
+    row r uses expert ``tile_expert[r // block_m]``'s weight (as x's
+    dtype) and adapters (``a_cat`` None: no adapter term)."""
+    return _expert_rows_ref(x, _tile_rows(tile_expert, block_m), w.shape[0],
+                            lambda e: w[e].to(x.dtype), a_cat, b_cat, w.shape[-1])
+
+
+def decode_dense_spmm_ref(x: torch.Tensor, row_expert: torch.Tensor, w: torch.Tensor,
+                          a_cat, b_cat) -> torch.Tensor:
+    """The SALR op over assignment rows of a dense stack: row r uses
+    expert ``row_expert[r]`` (-1: a pad row, exact zeros)."""
+    return _expert_rows_ref(x, row_expert, w.shape[0], lambda e: w[e].to(x.dtype),
+                            a_cat, b_cat, w.shape[-1])
+
+
+def _nm_expert(nmw: bm.NMWeight, e: int, dtype) -> torch.Tensor:
+    """Expert e of a stacked N:M weight decoded exactly, as ``dtype``."""
+    return bm.nm_decode(dataclasses.replace(nmw, group_bits=nmw.group_bits[e],
+                                            values=nmw.values[e])).to(dtype)
+
+
+def grouped_nm_spmm_ref(x: torch.Tensor, tile_expert: torch.Tensor, nmw: bm.NMWeight,
+                        a_cat, b_cat, block_m: int) -> torch.Tensor:
+    """The SALR op over expert-grouped rows of an N:M stack (group bits
+    (E, K, N/m), values (E, K, N/m*n)), each expert decoded exactly."""
+    return _expert_rows_ref(x, _tile_rows(tile_expert, block_m), nmw.group_bits.shape[0],
+                            lambda e: _nm_expert(nmw, e, x.dtype), a_cat, b_cat, nmw.cols)
+
+
+def decode_nm_spmm_ref(x: torch.Tensor, row_expert: torch.Tensor, nmw: bm.NMWeight,
+                       a_cat, b_cat) -> torch.Tensor:
+    """The SALR op over assignment rows of an N:M stack."""
+    return _expert_rows_ref(x, row_expert, nmw.group_bits.shape[0],
+                            lambda e: _nm_expert(nmw, e, x.dtype), a_cat, b_cat, nmw.cols)
+
+
 def nm_spmm_ref(x: torch.Tensor, nmw: bm.NMWeight) -> torch.Tensor:
     """y = x @ W_hat for an N:M base: an exact decode (the weight as x's
     dtype, as the tile enters the product), f32 sum, one rounding."""

@@ -69,11 +69,17 @@ _ATTENTION_ROUTES = {
 }
 
 
-def moe_op(r: execplan.PhaseRoute, quant: bool) -> str:
+# the expert-stack op family of a kernel route, by SALR method (a masked
+# stack's NF4 twin is not read there, as in the reference: no kernel)
+_MOE_FAMILIES = {"bitmap": "salr", "nm": "nm", "dense": "dense", "mask": "dense"}
+
+
+def moe_op(r: execplan.PhaseRoute, method: str, quant: bool) -> str:
     """The op an MoE layer's expert stacks run under phase route ``r``."""
     if r.moe == "dense_masked":
         return "dense decode + GEMM over every expert, masked combine"
-    return f"ops.{'grouped' if r.moe == 'grouped' else 'decode'}_{'q' if quant else ''}salr_matmul"
+    family = "qsalr" if quant and method == "bitmap" else _MOE_FAMILIES[method]
+    return f"ops.{'grouped' if r.moe == 'grouped' else 'decode'}_{family}_matmul"
 
 
 def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
@@ -92,8 +98,9 @@ def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
             desc = "dense decode + GEMM"
         else:
             desc = (_TWIN_ROUTES if quant else _KERNEL_ROUTES)[cfg.salr.method]
-        if cfg.n_experts:
-            desc += f", moe={moe_op(r, bool(quant))}"
+        if cfg.n_experts:   # gate/up/down are expert stacks: the moe= op
+            desc = desc.replace("wq/wk/wv/gate/up", "wq/wk/wv").replace("wo/down", "wo")
+            desc += f", moe={moe_op(r, cfg.salr.method, bool(quant))}"
         desc += f", kv_dtype={r.kv_dtype}"
         if phase == "decode":
             desc += f", attention={_ATTENTION_ROUTES[r.kv, r.kv_dtype]}"

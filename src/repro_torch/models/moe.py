@@ -10,22 +10,22 @@ follows the phase's ``PhaseRoute.moe``:
 
   ``grouped``       assignments stable-sorted by expert into block-aligned
                     groups (``group_assignments``, on the device, no host
-                    sync); ``ops.grouped_salr_matmul`` /
-                    ``grouped_qsalr_matmul`` run gate, up and down over the
+                    sync); ``ops.grouped_{salr,qsalr,nm,dense}_matmul``, by
+                    the stack's base, run gate, up and down over the
                     grouped rows (k-way work)
   ``decode_grid``   rows in plain token-major assignment order, a
                     ``row_expert`` map with -1 on pad rows;
-                    ``ops.decode_salr_matmul`` / ``decode_qsalr_matmul``
+                    ``ops.decode_{salr,qsalr,nm,dense}_matmul``
   ``dense_masked``  every expert over every token, the combine zeroing the
                     unselected (E-way): the reference formulation
 
 Both kernel routes reduce every row in the same fixed order, so they are
 bitwise equal per row and bitwise invariant to co-batched tokens; each
 combines a token's k expert outputs in top-k slot order 0..k-1.  A
-quantized base repr (the phase's ``repr``) reads the stack's NF4 twin.
-The kernel wrappers are forward-only; shared experts (DeepSeek) come
-with the MLA slice, and the dense, masked and N:M expert kernels with the
-next MoE slice.
+quantized base repr (the phase's ``repr``) reads a tiled stack's NF4
+twin on the kernel routes and any stack's twin on the oracle, as the
+reference does.  The kernel wrappers are forward-only; shared experts
+(DeepSeek) come with the MLA slice.
 """
 from __future__ import annotations
 
@@ -117,7 +117,7 @@ def _expert_matmul(stack, x: torch.Tensor, base_repr=None) -> torch.Tensor:
     (E, N, d_in) per expert.  Returns (E, N, d_out): the stack decoded
     dense and multiplied as the reference's per-expert
     ``_apply_reference`` does (a quantized ``base_repr`` decodes the NF4
-    twin)."""
+    twin, a dense or masked stack's ``QDenseWeight`` included)."""
     if not isinstance(stack, SALRLinear):
         return x @ stack["w"].to(x.dtype)
     quant = salr._resolve_repr(base_repr) != "native" and stack.qbase is not None
@@ -200,10 +200,10 @@ def group_assignments(top_i: torch.Tensor, n_experts: int, block_m: int) -> Grou
 
 
 def _grouped_capable(stack) -> bool:
-    """Whether the reference has a grouped/decode-grid kernel for this
-    stack's base layout (its capability rule; flat bitmap storage has
-    none).  Of those the port has the tiled-bitmap ones; the others raise
-    in the kernel routes."""
+    """Whether a grouped/decode-grid kernel exists for this stack's base
+    layout (the reference's capability rule): tiled bitmaps, untransposed
+    N:M, dense or masked tensors and plain ``{"w"}`` stacks; flat bitmap
+    storage has none."""
     if not isinstance(stack, SALRLinear):
         return True
     base = stack.base
@@ -216,39 +216,49 @@ def _grouped_capable(stack) -> bool:
 
 def _repr_base(stack: SALRLinear, base_repr: str):
     """The base the kernel routes stream under ``base_repr``: a quantized
-    repr reads the stacked NF4 twin where the stack has one."""
+    repr reads the stacked NF4 twin where it is a tiled one (a kernel
+    exists for it); every other stack, a dense or masked one with a
+    ``QDenseWeight`` twin included, reads its native base, as the
+    reference's kernel routes do."""
     if base_repr != "native" and isinstance(stack.qbase, bm.QTiledBitmapWeight):
         return stack.qbase
     return stack.base
 
 
-def _kernel_base(stack, base_repr: str):
-    if isinstance(stack, SALRLinear):
-        base = _repr_base(stack, base_repr)
-        if isinstance(base, (bm.TiledBitmapWeight, bm.QTiledBitmapWeight)):
-            return base
-    raise NotImplementedError("the grouped and decode-grid kernels of dense, masked and "
-                              "N:M expert stacks are not yet ported (next MoE slice)")
+# (the op's family in ops: grouped_* / decode_*) by base type
+_OP_FAMILY = ((bm.TiledBitmapWeight, "salr"), (bm.QTiledBitmapWeight, "qsalr"),
+              (bm.NMWeight, "nm"), (torch.Tensor, "dense"))
+
+
+def _expert_op(route: str, stack, xs: torch.Tensor, base_repr: str) -> tuple:
+    """(op, base, A_cat, B_cat) of one expert-stack matmul on a kernel
+    route ("grouped" or "decode"), dispatched on the base layout: a plain
+    ``{"w"}`` stack takes the dense op without adapters, a dense or masked
+    base the dense op as x's dtype."""
+    from repro_torch.kernels import ops
+    if not isinstance(stack, SALRLinear):
+        return getattr(ops, f"{route}_dense_matmul"), stack["w"].to(xs.dtype), None, None
+    base = _repr_base(stack, base_repr)
+    family = next(f for t, f in _OP_FAMILY if isinstance(base, t))
+    if family == "dense":
+        base = base.to(xs.dtype)
+    return (getattr(ops, f"{route}_{family}_matmul"), base, *_stacked_adapter_cat(stack))
+
+
+def _d_out(stack) -> Optional[int]:
+    return stack.d_out if isinstance(stack, SALRLinear) else None
 
 
 def _grouped_linear(stack, xs: torch.Tensor, g: GroupedAssignments,
                     base_repr: str = "native") -> torch.Tensor:
-    from repro_torch.kernels import ops
-    base = _kernel_base(stack, base_repr)
-    a_cat, b_cat = _stacked_adapter_cat(stack)
-    op = (ops.grouped_qsalr_matmul if isinstance(base, bm.QTiledBitmapWeight)
-          else ops.grouped_salr_matmul)
-    return op(xs, g.tile_expert, base, a_cat, b_cat, block_m=g.block_m)[:, :stack.d_out]
+    op, base, a_cat, b_cat = _expert_op("grouped", stack, xs, base_repr)
+    return op(xs, g.tile_expert, base, a_cat, b_cat, block_m=g.block_m)[:, :_d_out(stack)]
 
 
 def _decode_grid_linear(stack, xs: torch.Tensor, row_expert: torch.Tensor,
                         base_repr: str = "native") -> torch.Tensor:
-    from repro_torch.kernels import ops
-    base = _kernel_base(stack, base_repr)
-    a_cat, b_cat = _stacked_adapter_cat(stack)
-    op = (ops.decode_qsalr_matmul if isinstance(base, bm.QTiledBitmapWeight)
-          else ops.decode_salr_matmul)
-    return op(xs, row_expert, base, a_cat, b_cat)[:, :stack.d_out]
+    op, base, a_cat, b_cat = _expert_op("decode", stack, xs, base_repr)
+    return op(xs, row_expert, base, a_cat, b_cat)[:, :_d_out(stack)]
 
 
 def _combine(w: torch.Tensor, per: torch.Tensor) -> torch.Tensor:

@@ -253,8 +253,10 @@ def test_wrappers_launch_and_count(cuda):
 
 
 def _expert_stacks(cuda, gen, dtype, n_exp, k, n, r):
-    """An expert stack (tiled bitmap, p = 0.5) with its NF4 twin and
-    adapters A_cat (E, K, R), B_cat (E, R, N)."""
+    """An expert stack in each base family the expert kernels take: a
+    tiled bitmap (p = 0.5) and its NF4 twin, a masked dense stack and a
+    2:4 stack (groups along N); adapters A_cat (E, K, R), B_cat (E, R,
+    N)."""
     from repro_torch.core import salr
     w = torch.randn((n_exp * k, n), generator=gen, device=cuda) / k ** 0.5
     flat, _ = salr._tiled_encode(w.to(dtype), salr.SALRConfig())
@@ -262,9 +264,17 @@ def _expert_stacks(cuda, gen, dtype, n_exp, k, n, r):
                                 values=flat.values.reshape(n_exp, k, *flat.values.shape[1:]),
                                 cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t)
     q, _ = tbm.tile_quantize_nf4(tbw)
+    w3 = w.reshape(n_exp, k, n)
+    dense = prune.apply_mask(w3, prune.magnitude_mask(w3, 0.5, batch_dims=1)).to(dtype)
+    nmw, _ = tbm.nm_encode(w3.to(dtype))
     a = (torch.randn((n_exp, k, r), generator=gen, device=cuda) / k ** 0.5).to(dtype)
     b = (torch.randn((n_exp, r, n), generator=gen, device=cuda) / r ** 0.5).to(dtype)
-    return {"salr": tbw, "qsalr": q}, a, b
+    return {"salr": tbw, "qsalr": q, "dense": dense, "nm": nmw}, a, b
+
+
+def _width(st) -> int:
+    """The encoded output width of an expert stack."""
+    return st.shape[-1] if isinstance(st, torch.Tensor) else st.cols
 
 
 def _expert_rows(gen, cuda, x, n_exp, topk):
@@ -281,7 +291,8 @@ def _expert_rows(gen, cuda, x, n_exp, topk):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,n,r", [(1024, 512, 128), (512, 1024, 128), (100, 200, 24)])
 def test_expert_kernels_match_plain_bitwise_across_routes(cuda, k, n, r, dtype):
-    """grouped_/decode_(q)salr_spmm vs their plain versions (E 32, top-8);
+    """grouped_/decode_{salr,qsalr,dense,nm}_spmm vs their plain versions
+    (E 32, top-8);
     the grouped and decode outputs bitwise equal per assignment row; a
     row bitwise the same at 1, 4, 8 and 33 tokens as in a 64-token call."""
     gen = torch.Generator(device=cuda).manual_seed(k + n)
@@ -294,7 +305,7 @@ def test_expert_kernels_match_plain_bitwise_across_routes(cuda, k, n, r, dtype):
         yg = grouped(xs, g.tile_expert, st, a, b, block_m=g.block_m)
         yd = decode(xd, row_e, st, a, b)
         # the plain versions take B_cat at the encoded width
-        bp = torch.nn.functional.pad(b, (0, st.cols - n))
+        bp = torch.nn.functional.pad(b, (0, _width(st) - n))
         assert _close(yg, getattr(ref, f"grouped_{kind}_spmm_ref")(
             xs, g.tile_expert, st, a, bp, g.block_m), dtype)
         assert _close(yd, getattr(ref, f"decode_{kind}_spmm_ref")(xd, row_e, st, a, bp), dtype)
@@ -314,7 +325,8 @@ def test_expert_kernels_pad_rows_and_planted_faults(cuda, dtype):
     """Decode pad rows (-1, and rows past the map) come out exactly zero
     with NaN in their x rows; grouped pad and slack rows exactly zero from
     zero x, and NaN there changes no real row.  In bf16 the limit rejects
-    u left unrounded and a tile reading its neighbour expert's weights."""
+    u left unrounded, a tile reading its neighbour expert's weights and
+    (N:M) values read at the inclusive popcount."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     stacks, a, b = _expert_stacks(cuda, gen, dtype, 32, 512, 512, 128)
     x = (torch.randn((8, 512), generator=gen, device=cuda) / 4).to(dtype)
@@ -347,6 +359,21 @@ def test_expert_kernels_pad_rows_and_planted_faults(cuda, dtype):
             moved = g.tile_expert.clone()
             moved[0] = (moved[0] + 1) % 32
             assert not _close(plain(xs, moved, st, a, b, g.block_m), y_ref, dtype)
+            if kind == "nm":
+                late = torch.stack([_nm_inclusive(st, e) for e in range(32)])
+                assert not _close(ref.grouped_dense_spmm_ref(xs, g.tile_expert, late, a, b,
+                                                             g.block_m), y_ref, dtype)
+
+
+def _nm_inclusive(nmw, e: int) -> torch.Tensor:
+    """Expert e of an N:M stack decoded with each set bit's value read at
+    the inclusive popcount of its group byte (one slot late, clamped)."""
+    bits = nmw.group_bits[e]
+    shifts = torch.arange(nmw.m, dtype=torch.uint8, device=bits.device)
+    set_ = ((bits[..., None] >> shifts) & 1).bool()
+    slot = torch.cumsum(set_.long(), dim=-1).clamp(max=nmw.n - 1)
+    vals = torch.gather(nmw.values[e].reshape(*bits.shape, nmw.n), -1, slot)
+    return torch.where(set_, vals, 0).reshape(bits.shape[0], nmw.cols)
 
 
 def test_route_tokens_rows_invariant_on_card(cuda):
@@ -378,9 +405,8 @@ def test_expert_wrappers_launch_and_count(cuda):
         y0 = getattr(ops, f"decode_{kind}_matmul")(x, re_, st, a[..., :0], b[:, :0])
         y0_ref = getattr(ref, f"decode_{kind}_spmm_ref")(x, re_, st, None, None)
         assert _close(y0, y0_ref, torch.float32)
-    for name in ("grouped_salr_spmm", "grouped_qsalr_spmm"):
-        assert ops.LAUNCHES[name] == before[name] + 1
-    for name in ("decode_salr_spmm", "decode_qsalr_spmm"):
-        assert ops.LAUNCHES[name] == before[name] + 2
+    for kind in stacks:
+        assert ops.LAUNCHES[f"grouped_{kind}_spmm"] == before[f"grouped_{kind}_spmm"] + 1
+        assert ops.LAUNCHES[f"decode_{kind}_spmm"] == before[f"decode_{kind}_spmm"] + 2
     with pytest.raises(TypeError):
         ops.decode_salr_matmul(x.to(torch.bfloat16), re_, stacks["salr"], a, b)

@@ -185,7 +185,7 @@ def test_compress_stack_bit_exact(dtype):
 def test_compress_stack_rejects_unported_method():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tsalr.compress_stack(torch.Generator(), torch.zeros(2, 32, 32),
-                             tsalr.SALRConfig(method="nm"))
+                             tsalr.SALRConfig(method="bitmap_nf4"))
 
 
 # ------------------------------------------------- the four expert-stack ops

@@ -22,7 +22,8 @@ _WRAPPERS = ("salr_matmul", "bitmap_matmul", "paged_gqa_attention", "qsalr_matmu
              "ring_quant_gqa_attention", "paged_quant_gqa_attention",
              "ring_nf4_gqa_attention", "paged_nf4_gqa_attention", "nm_matmul",
              "lora_matmul", "nf4_matmul", "grouped_salr_matmul", "grouped_qsalr_matmul",
-             "decode_salr_matmul", "decode_qsalr_matmul")
+             "decode_salr_matmul", "decode_qsalr_matmul", "grouped_dense_matmul",
+             "grouped_nm_matmul", "decode_dense_matmul", "decode_nm_matmul")
 
 
 def _fields(obj):
