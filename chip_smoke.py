@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
 Phases (any failure exits non-zero before the result line):
 
-1. Card and build: the card's name and power limit, then the eight CUDA
-   sources of ``src/repro_torch/csrc`` (nineteen kernels) built with nvcc,
+1. Card and build: the card's name and power limit, then the nine CUDA
+   sources of ``src/repro_torch/csrc`` (twenty kernels) built with nvcc,
    one process per source, in parallel.
 2. Kernel vs plain version, in bf16 and in f32 with TF32 off, held to
    the plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32
@@ -27,7 +27,15 @@ Phases (any failure exits non-zero before the result line):
    and NF4) at 4 and 8 slots with 300 / 532 live positions: with NaN or
    junk in the null page and a freed page (data and scales), or past
    each ring row's position, the output must be finite and equal to the
-   clean one.  ``nm_spmm``, ``fused_lora`` and ``nf4_spmm`` at the wo
+   clean one.  ``paged_mla_attention`` at deepseek_v3_671b's published
+   MLA widths (H 128, kv_lora_rank 512, rope 64, qk_dim 192), page size
+   8, at 4 and 8 slots with 300 / 532 live positions, pools in bf16 and
+   in f32, held to the f32 limit in both (it computes in f32 whatever
+   the pool type); NaN in dead pages and past each slot's position must
+   leave the output bitwise equal, and the limit must reject three
+   planted faults (the rope score term dropped, the scale taken as
+   sqrt(R + rd), the live range one position short).  ``nm_spmm``,
+   ``fused_lora`` and ``nf4_spmm`` at the wo
    and down shapes (K = 576 / 1536, N = 576, R = 128) at M = 4, 8 and
    1024, and ``nf4_spmm`` at the smoke width's padded shape (96 columns
    -> 128); the bf16 limit must reject one planted fault each: values
@@ -43,9 +51,14 @@ Phases (any failure exits non-zero before the result line):
    reading its neighbour expert's weights) and a third for 2:4 (values
    read at the inclusive popcount), grouped and decode bitwise equal per
    row, rows bitwise independent of the token count (1, 4, 8, 33, 128),
-   decode pad rows exactly zero with NaN in their x rows.  Each is timed
-   (profiler device time, L2 flushed before every launch) beside the
-   plain version and one library call as a yardstick.
+   decode pad rows exactly zero with NaN in their x rows.
+   ``grouped_salr_spmm`` and ``decode_salr_spmm`` again at
+   deepseek_v3_671b's expert stacks (E 256, top-8, gate/up 7168 -> 2048,
+   down 2048 -> 7168, R 128) at 64 assignment rows, grouped and decode
+   bitwise equal per row, and ``salr_spmm`` at its shared expert's
+   projections at 8 rows.  Each is timed (profiler device time, L2
+   flushed before every launch) beside the plain version and, where one
+   exists, one library call as a yardstick.
 3. Main path: smollm_135m at full width, compressed once on the GPU from
    seeded dense weights with the NF4 twin (``dual_repr``); 8 requests
    (prompt 128 sharing a 64-token prefix, 32 new tokens) served by the
@@ -54,7 +67,10 @@ Phases (any failure exits non-zero before the result line):
    rank-0 SALR layer through ``apply_salr``), then decode linears from
    the NF4 twin with decode KV in int8, then in NF4 (prefill native).
    Every request must return 32 in-vocab tokens and engine tokens must
-   equal greedy tokens up to near-ties; under the quantized plans every
+   equal greedy tokens up to near-ties (``serve.parity_report``: a top-2
+   logit gap, or in an MoE model the router's k-th and (k+1)-th experts,
+   within the route noise at the diverging step); under the quantized
+   plans every
    first token must equal the native run's and prefix sharing must be
    off.  Native prefill logits of the kernel route must lie within
    ``ROUTE_TOL`` of the reference route's, and each planted fault (a
@@ -86,8 +102,21 @@ Phases (any failure exits non-zero before the result line):
    ``method="mask"`` (masked dense expert stacks: ``grouped_dense_spmm``
    / ``decode_dense_spmm``), each under the native plan, served and held
    the same way (prefill logits within ``ROUTE_TOL`` of the reference
-   route, the same two planted faults beyond it).
-4. Launch counts, set to 0 before each of the nine runs and read after
+   route, the same two planted faults beyond it).  Then (E)
+   deepseek_v3_671b at its published widths (d_model 7168, 128 heads,
+   MLA q_lora 1536 / kv_lora 512 / nope 128 / rope 64 / v 128, d_ff
+   18432, 256 experts top-8 + 1 shared of moe_d_ff 2048, vocab 129280,
+   bf16, p = 0.5, R = 128) cut to ``DEEPSEEK_LAYERS`` = 2 of its 61
+   layers (the first of each LayerGroup: a dense MLA + SwiGLU layer and
+   an MLA + MoE layer; 6.7e11 weights fit no card), compressed on the
+   GPU (the expert stacks drawn and compressed 18 experts at a time,
+   every SVD through cuSOLVER's gesvda), served by greedy_generate (a
+   dense slot latent cache: MLA's plain attention; grouped experts) and
+   the engine at 8 slots (paged latent pools with prefix sharing:
+   ``paged_mla_attention``; decode-grid experts), tokens and parity as
+   above, prefill logits within ``ROUTE_TOL`` of the reference route and
+   wo's adapter term dropped beyond it.
+4. Launch counts, set to 0 before each of the ten runs and read after
    it: the native run 210 ``salr_spmm`` per forward (7 projections x 30
    layers); a quantized run 210 ``qsalr_spmm`` and 30 quantized
    attention launches per decode step and ``salr_spmm`` at prefill
@@ -101,11 +130,17 @@ Phases (any failure exits non-zero before the result line):
    per forward, 72 ``grouped_nm_spmm`` per greedy forward or 72
    ``decode_nm_spmm`` per engine prefill or tick; (D) no attention
    linear kernel and 72 ``grouped_dense_spmm`` / ``decode_dense_spmm``;
-   both 24 ``paged_gqa_attention`` per engine tick; every kernel launched
-   at least once.
+   both 24 ``paged_gqa_attention`` per engine tick; (E) per layer and
+   forward ``salr_spmm`` for dq, uq, dkv and wo, for uk and uv too at
+   prefill (twice over a shared prefix) but not at decode (absorbed),
+   and for the dense MLP or the shared expert; 3
+   ``grouped_salr_spmm`` per greedy forward and 3 ``decode_salr_spmm``
+   per engine prefill or tick for the MoE layer; one
+   ``paged_mla_attention`` per layer and engine tick, no
+   ``paged_gqa_attention``; every kernel launched at least once.
 
 The last lines are the card (nvidia-smi), a JSON object describing each
-kernel (its launches summed over the nine main-path runs, its times at
+kernel (its launches summed over the ten main-path runs, its times at
 one decode-size call), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -129,6 +164,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, tensor core / CUD
 # way; sound readings <= 1.2e-4 over seeds 0-2, an unrounded u reads
 # 1.9e-3 to 2.3e-3)
 TOL = {"bfloat16": 5e-4, "float32": 1e-5}
+# paged_mla_attention computes in f32 on bf16 and f32 pools alike, so it
+# is held to the f32 limit in both: sound readings 5.0e-8 to 7.6e-8 over
+# seeds 0-2, planted faults (the rope score term dropped, the scale taken
+# as sqrt(R + rd), the live range one position short) 2.97e-2 to 1.81e-1
 # kernel route vs reference route, prefill logits at full width (bf16
 # rounding at other places through 30 layers): sound readings 1.9e-2 to
 # 2.4e-2 over seeds 0-2, a projection shape's adapter term dropped reads
@@ -171,6 +210,9 @@ MOE_SLOTS = 8
 # nm and mask runs beside it (full width; the kernels and their shapes
 # per layer are those of the full model)
 NM_LAYERS = 10
+# deepseek_v3_671b's depth in run (E): the first layer of each LayerGroup
+# (61 layers, 6.7e11 weights, fit no card); every width is the published one
+DEEPSEEK_LAYERS = 2
 
 
 def fail(msg: str) -> None:
@@ -247,8 +289,8 @@ def device_us(torch, prof, by_name: dict = None, counts: dict = None) -> float:
 
 def _row_line(row: dict) -> str:
     shape = " ".join(f"{k}={row[k]}" for k in ("layer", "tokens", "M", "K", "N_pad", "tile",
-                                                "cap_t",
-                                                "B", "live_positions") if k in row)
+                                                "cap_t", "E",
+                                                "B", "H", "R", "live_positions") if k in row)
     fault = "".join(f" ({what}: {row[key]:.2e})"
                     for what, key in (("unrounded u", "unrounded_u_rel_l2"),
                                       ("unrounded values", "unrounded_values_rel_l2"),
@@ -428,6 +470,124 @@ def paged_checks(torch, timer, gen, rows: list) -> dict:
                                         f"live positions {live_pos}")
             rows.append(row)
             print(_row_line(row))
+    return summary
+
+
+# deepseek_v3_671b's published MLA widths: heads, kv_lora_rank (the latent),
+# rope width, nope + rope query width
+MLA_H, MLA_R, MLA_RD, MLA_QK = 128, 512, 64, 192
+
+
+def _mla_faults(torch, ref, args, qk: int, pos) -> dict:
+    """The plain version under the planted faults the limit must reject."""
+    ql, qr, ckv, kr, table = args
+    return {"rope score term dropped": ref.paged_mla_attention_ref(
+                ql, torch.zeros_like(qr), ckv, kr, table, pos, qk),
+            "scale sqrt(R + rd)": ref.paged_mla_attention_ref(
+                ql, qr, ckv, kr, table, pos, MLA_R + MLA_RD),
+            "live range one short": ref.paged_mla_attention_ref(
+                ql, qr, ckv, kr, table, (pos - 1).clamp(min=0), qk)}
+
+
+def mla_checks(torch, timer, gen, rows: list) -> dict:
+    """paged_mla_attention vs its plain version at deepseek_v3_671b's
+    published MLA widths (H 128, R 512, rope 64, qk_dim 192), the engine's
+    page size (8), at 4 and 8 slots with 300 / 532 live positions, pools in
+    bf16 and in f32 (the arithmetic is f32 either way: the f32 limit holds
+    for both).  NaN in the null page, a freed page and past each slot's
+    position inside its last page must leave the output bitwise equal; the
+    limit must reject three planted faults (the rope score term dropped,
+    the scale taken as sqrt(R + rd), the live range one position short).
+    Timed beside the plain version and SDPA over pre-gathered f32 pages
+    (the heads as the query axis of one MQA head)."""
+    from repro_torch.kernels import ops, ref
+
+    ps, max_pages = 8, 20                          # max_ctx 160, as the engine's
+    summary = {"max_abs_err": 0.0}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for b in (4, 8):
+            n_pages = b * max_pages + 2               # + null page + one freed page
+            freed = n_pages - 1
+            ckv = torch.randn((n_pages, ps, MLA_R), generator=gen, device="cuda").to(dt)
+            kr = torch.randn((n_pages, ps, MLA_RD), generator=gen, device="cuda").to(dt)
+            perm = torch.randperm(b * max_pages, generator=gen, device="cuda") + 1
+            table = perm.reshape(b, max_pages).to(torch.int32)
+            pos = torch.tensor([159, 100, 37, 0, 7, 8, 63, 150][:b], dtype=torch.int32,
+                               device="cuda")
+            for i in range(b):
+                table[i, int(pos[i]) // ps + 1:] = 0 if i % 2 == 0 else freed
+            ql = torch.randn((b, MLA_H, MLA_R), generator=gen, device="cuda") / 4
+            qr = torch.randn((b, MLA_H, MLA_RD), generator=gen, device="cuda") / 4
+            args = (ql, qr, ckv, kr, table)
+            clean = ops.paged_mla_attention(*args, pos, qk_dim=MLA_QK)
+            plain = ref.paged_mla_attention_ref(*args, pos, MLA_QK)
+            # NaN wherever no slot reads: dead pages and past pos in the last page
+            live = torch.zeros((n_pages, ps), dtype=torch.bool, device="cuda")
+            for i in range(b):
+                p = torch.arange(int(pos[i]) + 1, device="cuda")
+                live[table[i, p // ps].long(), p % ps] = True
+            ckv_nan, kr_nan = ckv.clone(), kr.clone()
+            ckv_nan[~live] = float("nan")
+            kr_nan[~live] = float("nan")
+            y = ops.paged_mla_attention(ql, qr, ckv_nan, kr_nan, table, pos, qk_dim=MLA_QK)
+            plain_nan = ref.paged_mla_attention_ref(ql, qr, ckv_nan, kr_nan, table, pos,
+                                                    MLA_QK)
+            torch.cuda.synchronize()
+            if not torch.isfinite(y).all() or not torch.equal(y, clean):
+                fail(f"paged_mla_attention {dtype_name} B={b}: dead data reached the output")
+            if not torch.isfinite(plain_nan).all():
+                fail("plain MLA attention let dead-page NaN through")
+            err = rel_l2(torch, clean, plain)
+            abs_err = (clean - plain).abs().max().item()
+            if not (err <= TOL["float32"]):
+                fail(f"paged_mla_attention {dtype_name} B={b}: rel-L2 {err:.3e} > "
+                     f"{TOL['float32']:.0e}")
+            faults = {k: rel_l2(torch, f, plain)
+                      for k, f in _mla_faults(torch, ref, args, MLA_QK, pos).items()}
+            if not min(faults.values()) > TOL["float32"]:
+                fail(f"MLA limit {TOL['float32']:.0e} does not reject every planted fault: "
+                     f"{faults}")
+            summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
+            live_pos = int((pos.long() + 1).sum())
+            live_pages = int((pos.long() // ps + 1).sum())
+            es = ckv.element_size()
+            # what the function needs: the live latents and rope keys, q,
+            # o_lat, the live page-table entries and pos; per (slot, head,
+            # live position) 2 (R + rd) score and 2 R output operations
+            nbytes = (live_pos * (MLA_R + MLA_RD) * es + b * MLA_H * (2 * MLA_R + MLA_RD) * 4
+                      + live_pages * 4 + b * 4)
+            flops = live_pos * MLA_H * (2 * (MLA_R + MLA_RD) + 2 * MLA_R)
+            bound, by = _bound(nbytes, flops, "float32")
+            row = {"kernel": "paged_mla_attention", "dtype": dtype_name, "B": b, "H": MLA_H,
+                   "R": MLA_R, "rope": MLA_RD, "qk_dim": MLA_QK, "page_size": ps,
+                   "max_pages": max_pages, "live_positions": live_pos, "rel_l2": err,
+                   "max_abs_err": abs_err, "planted_faults_rel_l2": faults, "bytes": nbytes,
+                   "flops": flops, "bound_ms": bound, "bound_by": by}
+            w = max_pages * ps
+            # the yardstick: SDPA over pre-gathered f32 latents, the 128
+            # heads as the query axis of one head sharing one K/V
+            kg = torch.cat([ckv[table.long()], kr[table.long()]], dim=-1).reshape(
+                b, 1, w, MLA_R + MLA_RD).float()
+            vg = kg[..., :MLA_R].contiguous()
+            qs = torch.cat([ql, qr], dim=-1)[:, None]
+            mask = (torch.arange(w, device="cuda")[None] <= pos[:, None])[:, None, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            y_lib = sdpa(qs, kg, vg, attn_mask=mask, scale=1 / math.sqrt(MLA_QK))[:, 0]
+            row["library_rel_l2"] = rel_l2(torch, y_lib, plain)
+            row.update(
+                ms=timer.ms(lambda: ops.paged_mla_attention(*args, pos, qk_dim=MLA_QK)),
+                plain_ms=timer.ms(lambda: ref.paged_mla_attention_ref(*args, pos, MLA_QK)),
+                library_ms=timer.ms(lambda: sdpa(qs, kg, vg, attn_mask=mask,
+                                                 scale=1 / math.sqrt(MLA_QK))))
+            if dtype_name == "bfloat16" and b == 8:
+                summary.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "bound_by")})
+                summary["shape"] = (f"bf16 pools B=8 H=128 R=512 rope=64 page_size=8 "
+                                    f"live positions {live_pos}")
+            rows.append(row)
+            print(_row_line(row) + "; planted faults: "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in faults.items()))
     return summary
 
 
@@ -624,6 +784,16 @@ MOE_KERNELS = tuple(f"{route}_{kind}_spmm" for route in ("grouped", "decode")
                     for kind in MOE_KINDS)
 
 
+def _popcount(words):
+    """Set bits of each int32 word (SWAR in int64, a word at a time: the
+    bits of a 256-expert stack unpacked would not fit the card)."""
+    w = words.long() & 0xFFFFFFFF
+    w = w - ((w >> 1) & 0x55555555)
+    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
+    w = (w + (w >> 4)) & 0x0F0F0F0F
+    return ((w * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
 def _moe_cost(torch, stack, row_e, k: int, n: int, r: int, es: int) -> tuple:
     """(bytes, flops) the expert-stack op needs for these rows: x and y
     rows, and for each expert a row uses, its base as stored and its
@@ -649,9 +819,7 @@ def _moe_cost(torch, stack, row_e, k: int, n: int, r: int, es: int) -> tuple:
                          device=rows_of.device)
         base = torch.full_like(nnz, stack.group_bits[0].numel() + stack.values[0].numel() * es)
     else:
-        wpt = stack.words.shape[-1]
-        nnz = bm.unpack_bits(stack.words.reshape(-1, wpt), wpt * 32).reshape(
-            n_exp, -1).sum(1).double()
+        nnz = _popcount(stack.words).reshape(n_exp, -1).sum(1).double()
         quant = hasattr(stack, "codes")
         base = (stack.words[0].numel() * 4 + (stack.scales[0].numel() * 4 if quant else 0)
                 + (nnz / 2 if quant else nnz * es))
@@ -813,6 +981,119 @@ def moe_checks(torch, timer, gen, rows: list) -> dict:
     print("phase 2: expert-stack kernels: grouped == decode bitwise per row, rows "
           "independent of the token count, pad rows exactly zero")
     return summary
+
+
+# deepseek_v3_671b's MoE: 256 routed experts, top-8, moe_d_ff 2048, and one
+# shared expert of the same width
+DS_MOE_SHAPES = {"gate/up": (7168, 2048), "down": (2048, 7168)}
+DS_EXPERTS, DS_TOPK, DS_CHUNK = 256, 8, 16
+
+
+def _ds_stack(torch, gen, k: int, n: int):
+    """A tiled-bitmap stack of ``DS_EXPERTS`` bf16 experts (p = 0.5) from
+    seeded weights, encoded ``DS_CHUNK`` experts at a time."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import salr
+
+    parts = []
+    for _ in range(DS_EXPERTS // DS_CHUNK):
+        w = torch.randn((DS_CHUNK, k, n), generator=gen, device="cuda") / math.sqrt(k)
+        flat, _ = salr._tiled_encode(w.reshape(DS_CHUNK * k, n).to(torch.bfloat16),
+                                     salr.SALRConfig(dtype="bfloat16"))
+        parts.append(bm.TiledBitmapWeight(
+            words=flat.words.reshape(DS_CHUNK, k, *flat.words.shape[1:]),
+            values=flat.values.reshape(DS_CHUNK, k, *flat.values.shape[1:]),
+            cols=flat.cols, tile=flat.tile, cap_t=flat.cap_t))
+        del w, flat
+    return salr.cat_stacks(parts)
+
+
+def deepseek_moe_checks(torch, timer, gen, rows: list) -> None:
+    """``grouped_salr_spmm`` and ``decode_salr_spmm`` vs their plain
+    versions at deepseek_v3_671b's expert stacks (E 256, top-8, gate/up
+    7168 -> 2048, down 2048 -> 7168, R 128, bf16) at 64 assignment rows
+    (8 tokens: the engine's tick at 8 slots, greedy_generate's decode
+    step), grouped and decode bitwise equal per row; and ``salr_spmm`` at
+    the shared expert's projections (7168 <-> 2048) at the 8-token decode
+    batch.  The stacks are tiled bitmaps encoded from seeded weights, the
+    adapters drawn from the seed (no SVD).  Each is timed beside its plain
+    version (bytes bound)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import salr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+
+    dt, n_tok = torch.bfloat16, 8
+    plain_timer = Timer(torch, iters=3, traces=1)
+    for lname, (k, n) in DS_MOE_SHAPES.items():
+        st = _ds_stack(torch, gen, k, n)
+        a = (torch.randn((DS_EXPERTS, k, R_CAT), generator=gen, device="cuda")
+             / math.sqrt(k)).to(dt)
+        b = (torch.randn((DS_EXPERTS, R_CAT, n), generator=gen, device="cuda")
+             / math.sqrt(R_CAT)).to(dt)
+        x = (torch.randn((n_tok, k), generator=gen, device="cuda") / 4).to(dt)
+        top_i = torch.rand((n_tok, DS_EXPERTS), generator=gen,
+                           device="cuda").argsort(dim=1)[:, :DS_TOPK]
+        row_e = top_i.reshape(-1).to(torch.int32)
+        g = moe.group_assignments(top_i, DS_EXPERTS,
+                                  moe._group_block_m(n_tok * DS_TOPK, DS_EXPERTS))
+        xs = x.new_zeros((g.m_pad, k))
+        xs.index_copy_(0, g.dst, x.index_select(0, g.tok))
+        xd = x.repeat_interleave(DS_TOPK, dim=0)
+        outs = {}
+        for route, (xr, emap, kw) in {"grouped": (xs, g.tile_expert, {"block_m": g.block_m}),
+                                      "decode": (xd, row_e, {})}.items():
+            name = f"{route}_salr_spmm"
+            op, plain_fn = getattr(ops, f"{route}_salr_matmul"), getattr(ref, f"{name}_ref")
+
+            def kern(op=op, xr=xr, emap=emap, kw=kw):
+                return op(xr, emap, st, a, b, **kw)
+
+            def plain(plain_fn=plain_fn, xr=xr, emap=emap, kw=kw):
+                return plain_fn(xr, emap, st, a, b, **kw)
+            outs[route] = y = kern()
+            y_ref = plain()
+            torch.cuda.synchronize()
+            err = rel_l2(torch, y, y_ref)
+            if not (err <= TOL["bfloat16"]) or not torch.isfinite(y).all():
+                fail(f"{name} deepseek {lname} rows={xr.shape[0]}: rel-L2 {err:.3e}")
+            nbytes, flops = _moe_cost(torch, st, row_e, k, n, R_CAT, y.element_size())
+            bound, by = _bound(nbytes, flops, "bfloat16")
+            row = {"kernel": name, "dtype": "bfloat16", "layer": f"deepseek {lname}",
+                   "tokens": n_tok, "M": xr.shape[0], "K": k, "N_pad": st.cols, "E": DS_EXPERTS,
+                   "tile": st.tile, "cap_t": st.cap_t, "rel_l2": err,
+                   "max_abs_err": (y.float() - y_ref.float()).abs().max().item(),
+                   "bytes": nbytes, "flops": flops, "bound_ms": bound, "bound_by": by,
+                   "ms": timer.ms(kern), "plain_ms": plain_timer.ms(plain)}
+            rows.append(row)
+            print(_row_line(row))
+        if not torch.equal(outs["grouped"][g.dst[g.inv]], outs["decode"]):
+            fail(f"deepseek {lname}: grouped and decode rows differ")
+        del st, a, b
+        # the shared expert's projection of the same shape: one SALR linear
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        tbw, _ = salr._tiled_encode(w.to(dt), salr.SALRConfig(dtype="bfloat16"))
+        a1 = (torch.randn((k, R_CAT), generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+        b1 = ops._pad_bcat((torch.randn((R_CAT, n), generator=gen, device="cuda")
+                            / math.sqrt(R_CAT)).to(dt), tbw.cols)
+        y, y_ref = ops.salr_matmul(x, tbw, a1, b1), ref.salr_spmm_ref(x, tbw, a1, b1)
+        torch.cuda.synchronize()
+        err = rel_l2(torch, y, y_ref)
+        if not (err <= TOL["bfloat16"]) or not torch.isfinite(y).all():
+            fail(f"salr_spmm deepseek shared {lname} M={n_tok}: rel-L2 {err:.3e}")
+        nnz = int(bm.unpack_bits(tbw.words.reshape(-1, tbw.tile // 32), tbw.tile).sum())
+        nbytes = (n_tok * k * 2 + tbw.words.numel() * 4 + nnz * 2 + (k + n) * R_CAT * 2
+                  + n_tok * n * 2)
+        bound, by = _bound(nbytes, 2 * n_tok * (nnz + R_CAT * (k + n)), "bfloat16")
+        row = {"kernel": "salr_spmm", "dtype": "bfloat16", "layer": f"deepseek shared {lname}",
+               "M": n_tok, "K": k, "N_pad": tbw.cols, "tile": tbw.tile, "cap_t": tbw.cap_t,
+               "rel_l2": err, "max_abs_err": (y.float() - y_ref.float()).abs().max().item(),
+               "bound_ms": bound, "bound_by": by,
+               "ms": timer.ms(lambda: ops.salr_matmul(x, tbw, a1, b1)),
+               "plain_ms": timer.ms(lambda: ref.salr_spmm_ref(x, tbw, a1, b1))}
+        rows.append(row)
+        print(_row_line(row))
+    print("phase 2: deepseek_v3_671b expert stacks (E 256): grouped == decode bitwise per row")
 
 
 def _moe_no_adapter(torch, row, name, op, plain_fn, xr, emap, st, kw, dtype_name):
@@ -1143,11 +1424,13 @@ def check_tokens(label: str, cfg, greedy, results, n_req: int, gen_len: int) -> 
 def check_parity(label: str, report: list, n_req: int) -> None:
     """Engine tokens equal greedy tokens up to near-ties
     (``serve.parity_report``)."""
-    for rid, step, gap, limit, tie in report:
-        print(f"phase 3: {label}: request {rid} diverges from greedy_generate at step "
-              f"{step}: top-2 gap {gap:.5g}, near-tie limit {limit:.5g} -> "
-              f"{'near-tie, accepted' if tie else 'NOT a near-tie'}")
-    if not all(r[4] for r in report):
+    for d in report:
+        router = (f", router margin {d.router_margin:.5g}, limit {d.router_limit:.5g}"
+                  if math.isfinite(d.router_margin) else "")
+        print(f"phase 3: {label}: request {d.rid} diverges from greedy_generate at step "
+              f"{d.step}: top-2 gap {d.gap:.5g}, near-tie limit {d.limit:.5g}{router} -> "
+              f"{f'near-tie ({d.near_tie}), accepted' if d.near_tie else 'NOT a near-tie'}")
+    if not all(d.near_tie for d in report):
         fail(f"{label}: engine tokens diverge from greedy_generate away from a near-tie")
     print(f"phase 3: {label}: parity: {n_req - len(report)}/{n_req} requests equal "
           f"greedy_generate exactly, {len(report)} diverge at near-ties")
@@ -1366,14 +1649,16 @@ def _granite_faults(torch, params) -> dict:
             "layer 0 routes to top_i + 1": roll_router(torch, params, 0)}
 
 
-def _granite_serve(torch, label: str, cfg, params, prompts, rows: list, expected_of,
-                   faults: dict, quant: bool, row_extra: dict) -> tuple:
-    """One granite run: both engines (greedy_generate on the grouped
-    route, the engine at ``MOE_SLOTS`` slots on the decode grid), tokens,
-    parity, the route check (prefill; under a quantized plan the replayed
-    decode) with its planted faults, and the decode tick's profile.
-    ``expected_of(steps, ticks, prefills)`` gives the nonzero launch counts
-    the run must show.  Returns (launch counts, launches expected)."""
+def _moe_serve(torch, label: str, cfg, params, prompts, rows: list, expected_of,
+               faults: dict, quant: bool, row_extra: dict) -> tuple:
+    """One MoE-arch run (granite, deepseek): both engines (greedy_generate
+    on the grouped route, the engine at ``MOE_SLOTS`` slots on the decode
+    grid), tokens, parity, the route check (prefill; under a quantized
+    plan the replayed decode) with its planted faults, and the decode
+    tick's profile.  ``expected_of(steps, ticks, prefills, hits)`` gives
+    the nonzero launch counts the run must show (``hits``: the engine's
+    prefills that continued a shared prefix).  Returns (launch counts,
+    launches expected)."""
     from repro_torch.core import execplan
     from repro_torch.launch import serve
 
@@ -1385,7 +1670,7 @@ def _granite_serve(torch, label: str, cfg, params, prompts, rows: list, expected
     if routes != {"prefill": ("grouped", "decode_grid"), "decode": ("grouped", "decode_grid")}:
         fail(f"{label}: MoE routes (greedy, engine) {routes}")
     expected = dict.fromkeys(counts, 0)
-    expected.update(expected_of(steps, ticks, prefills))
+    expected.update(expected_of(steps, ticks, prefills, metrics["n_prefix_hits"]))
     print(f"phase 3: {label}: greedy_generate {serve.route_line(cfg, plan)}")
     print(f"phase 3: {label}: continuous engine ({MOE_SLOTS} slots) "
           f"{serve.route_line(cfg, eng.plan)}")
@@ -1432,7 +1717,7 @@ def _granite_bitmap(torch, dev, seed: int, cfg, prompts, rows: list) -> list:
         # (greedy: grouped; the engine: decode grid); one decode attention
         # per layer and decode step (greedy: the int8 ring under the twin
         # plan, plain attention under the native one; the engine: paged)
-        def expected_of(steps, ticks, prefills, q=q, quant=quant):
+        def expected_of(steps, ticks, prefills, _hits, q=q, quant=quant):
             e = collections.Counter({"salr_spmm": 4 * n_layers * (1 + prefills),
                                      "grouped_salr_spmm": 3 * n_layers,
                                      "decode_salr_spmm": 3 * n_layers * prefills})
@@ -1445,7 +1730,7 @@ def _granite_bitmap(torch, dev, seed: int, cfg, prompts, rows: list) -> list:
             else:
                 e["paged_gqa_attention"] = n_layers * ticks
             return e
-        counts, expected = _granite_serve(
+        counts, expected = _moe_serve(
             torch, label, qcfg, params, prompts, rows, expected_of, faults, quant,
             {"param_bytes": nbytes, "nf4_twin_bytes": twin, "compress_s": init_s})
         per_step = {f"grouped_{q}salr_spmm per greedy step": 3 * n_layers,
@@ -1472,7 +1757,7 @@ def _granite_method(torch, dev, seed: int, label: str, cfg, prompts, rows: list)
     # per forward: the 3 expert stacks of each layer (greedy: grouped; the
     # engine: decode grid) and, under nm, wq/wk/wv's salr_spmm and wo's
     # nm_spmm + fused_lora; one paged attention per layer and engine tick
-    def expected_of(steps, ticks, prefills):
+    def expected_of(steps, ticks, prefills, _hits):
         forwards = 1 + steps + prefills + ticks
         e = {f"grouped_{family}_spmm": 3 * n_layers * (1 + steps),
              f"decode_{family}_spmm": 3 * n_layers * (prefills + ticks),
@@ -1481,7 +1766,7 @@ def _granite_method(torch, dev, seed: int, label: str, cfg, prompts, rows: list)
             e.update({"salr_spmm": 3 * n_layers * forwards, "nm_spmm": n_layers * forwards,
                       "fused_lora": n_layers * forwards})
         return e
-    counts, expected = _granite_serve(torch, label, cfg, params, prompts, rows, expected_of,
+    counts, expected = _moe_serve(torch, label, cfg, params, prompts, rows, expected_of,
                                       _granite_faults(torch, params), False,
                                       {"param_bytes": nbytes, "compress_s": init_s})
     per_step = {f"grouped_{family}_spmm per greedy step": 3 * n_layers,
@@ -1489,6 +1774,75 @@ def _granite_method(torch, dev, seed: int, label: str, cfg, prompts, rows: list)
     if nm:
         per_step.update({"salr_spmm per decode step": 3 * n_layers,
                          "nm_spmm + fused_lora per decode step": 2 * n_layers})
+    return label, counts, expected, per_step
+
+
+def deepseek_cfg():
+    """deepseek_v3_671b at its published widths, cut to ``DEEPSEEK_LAYERS``
+    layers: the first layer of each of its LayerGroups (a dense MLA +
+    SwiGLU layer, then an MLA + MoE layer with 256 routed experts, top-8,
+    and the shared expert)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    base = configs.get("deepseek_v3_671b")
+    groups = tuple(dataclasses.replace(g, repeats=1)
+                   for g in base.layer_groups[:DEEPSEEK_LAYERS])
+    return base.with_(layer_groups=groups, first_dense_layers=1)
+
+
+def deepseek_path(torch, dev, seed: int, rows: list) -> tuple:
+    """(E) deepseek_v3_671b at published width, ``DEEPSEEK_LAYERS`` layers,
+    compressed on the GPU from seeded weights (bitmap, p = 0.5, R = 128,
+    the expert stacks drawn and compressed in chunks along E), served by
+    greedy_generate (a dense slot latent cache: MLA's plain attention
+    branch; the grouped expert kernels) and by the continuous engine at
+    ``MOE_SLOTS`` slots (paged latent pools with prefix sharing:
+    ``paged_mla_attention``; the decode-grid expert kernels).  Prefill
+    logits of the kernel route within ``ROUTE_TOL`` of the reference
+    route, wo's adapter term dropped beyond it."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = deepseek_cfg()
+    prompts = serve.request_prompts(cfg, N_REQ, PROMPT_LEN, seed, shared_prefix=64)
+    params, init_s = serve.build_params(cfg, seed, dev)
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    kinds = M.layer_kinds(cfg)
+    n_layers = len(kinds)
+    n_moe = sum(mlp == "moe" for _, mlp in kinds)
+    label = "deepseek (E)"
+    print(f"phase 3: {label}: compressed {cfg.name} at {n_layers} of its 61 layers "
+          f"({kinds}; d_model {cfg.d_model}, {cfg.n_heads} heads, MLA q_lora "
+          f"{cfg.mla.q_lora_rank} kv_lora {cfg.mla.kv_lora_rank}, {cfg.n_experts} experts "
+          f"top-{cfg.experts_per_token} + {cfg.n_shared_experts} shared) on {dev} in "
+          f"{init_s:.2f}s; parameter bytes {nbytes}")
+
+    # per forward and MLA layer: dq, uq, dkv and wo through salr_spmm, uk and
+    # uv too at prefill (twice over a shared prefix, which is decompressed
+    # again) but not at decode (absorbed); the dense MLP's or the shared
+    # expert's 3; an MoE layer's 3 expert stacks (greedy: grouped; the
+    # engine: decode grid); one paged_mla_attention per layer and tick
+    def expected_of(steps, ticks, prefills, hits):
+        ffn = 3 * n_layers
+        e = {"salr_spmm": ((6 * n_layers + ffn) * (1 + prefills) + 2 * n_layers * hits
+                           + (4 * n_layers + ffn) * (steps + ticks)),
+             "paged_mla_attention": n_layers * ticks}
+        if n_moe:
+            e.update(grouped_salr_spmm=3 * n_moe * (1 + steps),
+                     decode_salr_spmm=3 * n_moe * (prefills + ticks))
+        return e
+    faults = {"wo's adapter term dropped": drop_adapters(torch, params, ("wo",),
+                                                         part="mixer")}
+    counts, expected = _moe_serve(torch, label, cfg, params, prompts, rows, expected_of,
+                                  faults, False, {"param_bytes": nbytes, "compress_s": init_s,
+                                                  "layers": n_layers})
+    per_step = {"salr_spmm per decode step": 4 * n_layers + 3 * n_layers,
+                "paged_mla_attention per engine tick": n_layers}
+    if n_moe:
+        per_step.update({"grouped_salr_spmm per greedy step": 3 * n_moe,
+                         "decode_salr_spmm per engine tick": 3 * n_moe})
     return label, counts, expected, per_step
 
 
@@ -1741,6 +2095,7 @@ def tick_profile(torch, eng, prompts) -> dict:
                 "fused_lora": ("fused_lora_kernel",),
                 "nf4_spmm": ("nf4_spmm_kernel",),
                 "paged_gqa_attention": ("paged_gqa_kernel",),
+                "paged_mla_attention": ("paged_mla_kernel",),
                 "quantized attention": ("quant_gqa_kernel",)}
     split = {f: 0.0 for f in (*families, "other")}
     for name, us in by_name.items():
@@ -1808,9 +2163,11 @@ def main(argv=None) -> int:
         spmm = spmm_checks(torch, timer, gen, rows)
         paged = paged_checks(torch, timer, gen, rows)
         qsalr = qsalr_checks(torch, timer, gen, rows)
+        mla = mla_checks(torch, timer, gen, rows)
         quant_att = quant_attention_checks(torch, timer, gen, rows)
         methods = method_checks(torch, timer, gen, rows)
         moe_k = moe_checks(torch, timer, gen, rows)
+        deepseek_moe_checks(torch, timer, gen, rows)
     print(f"phase 2: every kernel agrees with its plain version "
           f"({time.perf_counter() - t_start:.1f}s)")
 
@@ -1820,7 +2177,11 @@ def main(argv=None) -> int:
     gc.collect()
     print(f"phase 3: smollm_135m runs done ({time.perf_counter() - t_start:.1f}s)")
     paths += granite_paths(torch, torch.device("cuda"), args.seed, rows)
+    gc.collect()
     print(f"phase 3: granite_moe_1b_a400m runs done ({time.perf_counter() - t_start:.1f}s)")
+    paths.append(deepseek_path(torch, torch.device("cuda"), args.seed, rows))
+    gc.collect()
+    print(f"phase 3: deepseek_v3_671b run done ({time.perf_counter() - t_start:.1f}s)")
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     for path, counts, expected, per_step in paths:
         for name, n in counts.items():
@@ -1840,6 +2201,8 @@ def main(argv=None) -> int:
                                "src/repro/kernels/bitmap_spmm.py:68", spmm["bitmap_spmm"]),
                "paged_gqa_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                        "src/repro/kernels/paged_attention.py:98", paged),
+               "paged_mla_attention": ("src/repro_torch/csrc/mla_attention.cu",
+                                       "src/repro/kernels/paged_attention.py:331", mla),
                "qsalr_spmm": ("src/repro_torch/csrc/salr_spmm.cu",
                               "src/repro/kernels/qsalr_spmm.py:89", qsalr),
                **{name: ("src/repro_torch/csrc/quant_attention.cu",

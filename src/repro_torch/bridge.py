@@ -33,10 +33,12 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-# projections of the attention block and the dense MLP whose flat (dense,
-# masked or N:M) base the reference stores as W^T; taken from the name, as
-# a shape cannot tell (wq is square).  Expert stacks are never transposed
-TRANSPOSED = ("wq", "wk", "wv", "gate", "up")
+# projections of the attention block (GQA and MLA), the dense MLP and the
+# shared experts whose flat (dense, masked or N:M) base the reference
+# stores as W^T; taken from the name, as a shape cannot tell (wq is
+# square).  wo, down and the routed expert stacks are never transposed
+TRANSPOSED = ("wq", "wk", "wv", "dq", "uq", "dkv", "uk", "uv", "gate", "up")
+MLA_LINEARS = ("dq", "uq", "dkv", "uk", "uv", "wo")
 
 
 def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device,
@@ -77,6 +79,64 @@ def _linear(flat: dict, key: str, r: int, d_out: int, cfg: ArchConfig, device,
                       qbase=qbase)
 
 
+def _widths(cfg: ArchConfig) -> dict:
+    """d_out of every carried linear, by the part of a layer it sits in."""
+    hd = cfg.resolved_head_dim
+    fs = cfg.moe_d_ff * cfg.n_shared_experts
+    out = {"['mixer']": {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,
+                         "wv": cfg.n_kv_heads * hd, "wo": cfg.d_model},
+           "['mlp']": {"gate": cfg.d_ff, "up": cfg.d_ff, "down": cfg.d_model},
+           "['moe']": {"gate": cfg.moe_d_ff, "up": cfg.moe_d_ff, "down": cfg.d_model},
+           "['moe']['shared']": {"gate": fs, "up": fs, "down": cfg.d_model}}
+    if cfg.mla is not None:
+        m = cfg.mla
+        out["['mixer']"].update(
+            dq=m.q_lora_rank, uq=cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim),
+            dkv=m.kv_lora_rank + m.qk_rope_head_dim, uk=cfg.n_heads * m.qk_nope_head_dim,
+            uv=cfg.n_heads * m.v_head_dim)
+    return out
+
+
+def _carry_linears(flat: dict, pre: str, part: str, names: tuple, r: int, cfg: ArchConfig,
+                   device) -> dict:
+    """The linears ``names`` under ``pre + part``, a flat base of a name in
+    ``TRANSPOSED`` as the W^T it stores (never a routed expert stack's)."""
+    widths = _widths(cfg)[part]
+    return {n: _linear(flat, f"{pre}{part}['{n}']", r, widths[n], cfg, device,
+                       part != "['moe']" and n in TRANSPOSED) for n in names}
+
+
+def _norm(flat: dict, path: str, r: int, device) -> dict:
+    return {"scale": to_tensor(flat[f"{path}['scale']"][r], device)}
+
+
+def carry_mixer(flat: dict, pre: str, r: int, kind: str, cfg: ArchConfig, device) -> dict:
+    """Repeat ``r`` of the ``['mixer']`` leaves under the layer prefix
+    ``pre``: GQA (``attn``: norm, wq/wk/wv/wo) or MLA (``mla``: the norms
+    norm/qnorm/kvnorm and the linears of ``MLA_LINEARS``)."""
+    if kind == "mla":
+        return {**{n: _norm(flat, f"{pre}['mixer']['{n}']", r, device)
+                   for n in ("norm", "qnorm", "kvnorm")},
+                **_carry_linears(flat, pre, "['mixer']", MLA_LINEARS, r, cfg, device)}
+    if kind != "attn":
+        raise NotImplementedError(f"mixer {kind!r} is not yet ported")
+    return {"norm": _norm(flat, f"{pre}['mixer']['norm']", r, device),
+            **_carry_linears(flat, pre, "['mixer']", ("wq", "wk", "wv", "wo"), r, cfg, device)}
+
+
+def carry_moe(flat: dict, pre: str, r: int, cfg: ArchConfig, device) -> dict:
+    """Repeat ``r`` of the ``['moe']`` leaves under ``pre``: its norm, the
+    f32 router, the gate/up/down expert stacks (leaves keep their expert
+    axis) and, with ``n_shared_experts``, the shared gate/up/down."""
+    ffn = ("gate", "up", "down")
+    out = {"norm": _norm(flat, f"{pre}['moe']['norm']", r, device),
+           "router": {"w": to_tensor(flat[f"{pre}['moe']['router']['w']"][r], device)},
+           **_carry_linears(flat, pre, "['moe']", ffn, r, cfg, device)}
+    if cfg.n_shared_experts:
+        out["shared"] = _carry_linears(flat, pre, "['moe']['shared']", ffn, r, cfg, device)
+    return out
+
+
 def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     """The port's params from the reference's flat keystr dict.  The
     repeats axis of every stacked leaf is unstacked into per-layer
@@ -84,46 +144,28 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     words-per-tile x 32, cap_t from the values, cols = n_tiles x tile),
     d_out from the config, and adapter scales are 1.0 (alpha = rank).  An
     N:M base (``.base.group_bits/values``) and a dense or masked base
-    (``.base``) are carried too, a flat base of an attention or MLP
-    projection in ``TRANSPOSED`` as the W^T it stores (an expert stack's
-    never).  A layer's NF4 twin is carried
-    when the reference emitted one: ``.qbase.words/codes/scales`` for a
-    tiled base, ``.qbase.codes/scales`` (a QDenseWeight) for a dense one.
-    An MoE layer's ``['moe']`` leaves are carried as one layer of
-    ``{"mixer", "moe"}``: its norm, the f32 router and the gate/up/down
-    expert stacks, whose leaves keep their expert axis after the repeats
-    axis is taken off (twins included)."""
+    (``.base``) are carried too, a flat base of a projection in
+    ``TRANSPOSED`` (attention, MLA, dense MLP and shared-expert gate/up)
+    as the W^T it stores (a routed expert stack's never).  A layer's NF4
+    twin is carried when the reference emitted one:
+    ``.qbase.words/codes/scales`` for a tiled base, ``.qbase.codes/scales``
+    (a QDenseWeight) for a dense one.  A layer is ``{"mixer", "moe"}``
+    when it has ``['moe']`` leaves (``carry_moe``), else ``{"mixer",
+    "mlp_norm", "mlp"}``; its mixer is GQA or MLA by the group pattern
+    (``carry_mixer``)."""
     dev = resolve_device(device)
-    hd = cfg.resolved_head_dim
-    widths = {"mixer": {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,
-                        "wv": cfg.n_kv_heads * hd, "wo": cfg.d_model},
-              "mlp": {"gate": cfg.d_ff, "up": cfg.d_ff, "down": cfg.d_model},
-              "moe": {"gate": cfg.moe_d_ff, "up": cfg.moe_d_ff, "down": cfg.d_model}}
     layers = []
     for gi, g in enumerate(cfg.layer_groups):
         for r in range(g.repeats):
             for pi, kind in enumerate(g.pattern):
-                if kind != "attn":
-                    raise NotImplementedError(f"mixer {kind!r} is not yet ported")
                 pre = f"['groups'][{gi}][{pi}]"
-
-                def lin(sub, name, pre=pre, r=r):
-                    return _linear(flat, f"{pre}['{sub}']['{name}']", r, widths[sub][name],
-                                   cfg, dev, sub != "moe" and name in TRANSPOSED)
-
-                def norm(path, pre=pre, r=r):
-                    return {"scale": to_tensor(flat[f"{pre}{path}['scale']"][r], dev)}
-
-                layer = {"mixer": {"norm": norm("['mixer']['norm']"),
-                                   **{n: lin("mixer", n) for n in ("wq", "wk", "wv", "wo")}}}
+                layer = {"mixer": carry_mixer(flat, pre, r, kind, cfg, dev)}
                 if pre + "['moe']['router']['w']" in flat:
-                    layer["moe"] = {
-                        "norm": norm("['moe']['norm']"),
-                        "router": {"w": to_tensor(flat[pre + "['moe']['router']['w']"][r], dev)},
-                        **{n: lin("moe", n) for n in ("gate", "up", "down")}}
+                    layer["moe"] = carry_moe(flat, pre, r, cfg, dev)
                 else:
-                    layer.update(mlp_norm=norm("['mlp_norm']"),
-                                 mlp={n: lin("mlp", n) for n in ("gate", "up", "down")})
+                    layer.update(mlp_norm=_norm(flat, f"{pre}['mlp_norm']", r, dev),
+                                 mlp=_carry_linears(flat, pre, "['mlp']", ("gate", "up", "down"),
+                                                    r, cfg, dev))
                 layers.append(layer)
     return {"embed": {"table": to_tensor(flat["['embed']['table']"], dev)},
             "layers": layers,

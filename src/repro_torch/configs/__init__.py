@@ -1,6 +1,6 @@
 """Architecture configs ported so far."""
-from repro_torch.configs.base import (PORTED, SHAPES, ArchConfig, LayerGroup,
+from repro_torch.configs.base import (PORTED, SHAPES, ArchConfig, LayerGroup, MLAConfig,
                                       SALRModelConfig, ShapeSpec, get, register)
 
-__all__ = ["PORTED", "SHAPES", "ArchConfig", "LayerGroup",
+__all__ = ["PORTED", "SHAPES", "ArchConfig", "LayerGroup", "MLAConfig",
            "SALRModelConfig", "ShapeSpec", "get", "register"]

@@ -1,7 +1,7 @@
 """Architecture / shape / SALR configuration dataclasses and registry.
 
 The port's own copy of ``repro.configs.base`` (the port imports nothing
-of the reference package).  Only the fields of the dense and MoE
+of the reference package).  Only the fields of the dense, MoE and MLA
 decoders served so far are live; the rest are kept so the copy stays
 field-for-field equal to the reference (a CPU test pins that).
 """
@@ -9,6 +9,16 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2/V3)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +68,7 @@ class ArchConfig:
     moe_d_ff: int = 0
     moe_drop_threshold: float = 0.0
     first_dense_layers: int = 0
-    mla: Optional[object] = None      # MLAConfig: not yet ported
+    mla: Optional[MLAConfig] = None
     window: int = 0
     rope_theta: float = 1e4
     rnn_width: int = 0
@@ -108,7 +118,7 @@ SHAPES = {
 _REGISTRY: dict = {}
 
 # archs ported so far (the reference registers eleven)
-PORTED = ["smollm_135m", "granite_moe_1b_a400m"]
+PORTED = ["smollm_135m", "granite_moe_1b_a400m", "deepseek_v3_671b"]
 
 
 def register(name: str, config: ArchConfig, smoke: ArchConfig) -> None:

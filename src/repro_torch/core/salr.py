@@ -136,6 +136,44 @@ def delta_w(layer: SALRLinear) -> torch.Tensor:
     return a_cat @ b_cat
 
 
+def effective_weight(layer: SALRLinear) -> torch.Tensor:
+    """Dense W_hat + A_cat B_cat in the logical (d_in, d_out) orientation:
+    the base decoded (a tiled base cut to its logical width, a flat base
+    of a ``transposed`` layer turned back) plus the adapters' update, in
+    the layer's dtype.  MLA's absorbed decode needs the matrix itself."""
+    w = materialize_base(layer.base)
+    if _is_tiled(layer.base):
+        w = w[:, :layer.d_out]
+    if layer.transposed:
+        w = w.T
+    return w + delta_w(layer)
+
+
+def slice_stack(obj, sl: slice):
+    """Experts ``sl`` of an expert stack (or of one of its leaves): every
+    tensor leaf sliced on dim 0, every static field kept."""
+    if isinstance(obj, torch.Tensor):
+        return obj[sl]
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    return dataclasses.replace(obj, **{f.name: slice_stack(getattr(obj, f.name), sl)
+                                       for f in dataclasses.fields(obj) if f.init})
+
+
+def cat_stacks(parts: list):
+    """Expert stacks (or their leaves) concatenated along the expert axis:
+    every tensor leaf of the dataclasses is joined on dim 0, every static
+    field taken from the first part."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts, dim=0)
+    if not dataclasses.is_dataclass(first):
+        return first
+    return dataclasses.replace(first, **{
+        f.name: cat_stacks([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(first) if f.init})
+
+
 def _resolve_backend(layer: SALRLinear, backend: Optional[str]) -> str:
     b = backend
     if b is None:

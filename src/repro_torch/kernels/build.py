@@ -48,6 +48,7 @@ KERNELS = {
     "grouped_nm_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 10 + [_P]),
     "decode_dense_spmm": ("grouped_spmm.cu", [_P] * 7 + [_I] * 7 + [_P]),
     "decode_nm_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 9 + [_P]),
+    "paged_mla_attention": ("mla_attention.cu", [_P] * 7 + [_I] * 9 + [_P]),
 }
 
 _LIBS: dict = {}                  # kernel name -> its loaded library

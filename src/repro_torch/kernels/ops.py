@@ -25,7 +25,8 @@ LAUNCHES = {"salr_spmm": 0, "bitmap_spmm": 0, "paged_gqa_attention": 0,
             "paged_nf4_gqa_attention": 0, "nm_spmm": 0, "fused_lora": 0,
             "nf4_spmm": 0, "grouped_salr_spmm": 0, "grouped_qsalr_spmm": 0,
             "decode_salr_spmm": 0, "decode_qsalr_spmm": 0, "grouped_dense_spmm": 0,
-            "grouped_nm_spmm": 0, "decode_dense_spmm": 0, "decode_nm_spmm": 0}
+            "grouped_nm_spmm": 0, "decode_dense_spmm": 0, "decode_nm_spmm": 0,
+            "paged_mla_attention": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -313,6 +314,52 @@ def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _launch(name, q.device, q.data_ptr(), k_pool.data_ptr(),
                 v_pool.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
                 out.data_ptr(), b, h, kh, d, ps, page_table.shape[1], code)
+    return out
+
+
+def paged_mla_attention(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv_pool: torch.Tensor,
+                        krope_pool: torch.Tensor, page_table: torch.Tensor, pos: torch.Tensor,
+                        *, qk_dim: int) -> torch.Tensor:
+    """MLA absorbed decode over paged latent pools.
+
+    q_lat: (B, H, R) f32, already absorbed through W_uk; q_rope: (B, H,
+    rd) f32; ckv_pool: (P, page_size, R) and krope_pool (P, page_size,
+    rd), float32 or bfloat16 alike; page_table: (B, max_pages) int32, page
+    0 the null page; pos: (B,) int32, last live position per slot
+    (inclusive); ``qk_dim`` is the nope + rope query width the scores are
+    divided by the root of.  Returns o_lat (B, H, R) f32 (the caller
+    applies W_uv and wo)."""
+    name = "paged_mla_attention"
+    _forward_only(name, q_lat, q_rope, ckv_pool, krope_pool)
+    b, h, r = q_lat.shape
+    rd = q_rope.shape[-1]
+    p_total, ps, rc = ckv_pool.shape
+    if (q_rope.shape != (b, h, rd) or rc != r or krope_pool.shape != (p_total, ps, rd)
+            or page_table.ndim != 2 or page_table.shape[0] != b or pos.shape != (b,)):
+        raise ValueError(f"{name}: shapes q_lat {tuple(q_lat.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, pools {tuple(ckv_pool.shape)}/"
+                         f"{tuple(krope_pool.shape)}, page table {tuple(page_table.shape)}, "
+                         f"pos {tuple(pos.shape)}")
+    if q_lat.dtype != torch.float32 or q_rope.dtype != torch.float32:
+        raise TypeError(f"{name}: q_lat and q_rope must be float32")
+    if krope_pool.dtype != ckv_pool.dtype:
+        raise TypeError(f"{name}: pools of {ckv_pool.dtype} and {krope_pool.dtype}")
+    if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"{name}: page_table and pos must be int32")
+    tensors = (q_lat, q_rope, ckv_pool, krope_pool, page_table, pos)
+    if _placement(name, *tensors) == "cpu":
+        return ref.paged_mla_attention_ref(*tensors, qk_dim=qk_dim)
+    if (h > 8 and h % 8) or r % 32 or not 0 < r <= 512 or rd % 8 or not 0 < rd <= 128:
+        raise ValueError(f"{name}: kernel takes up to 8 heads or a multiple of 8, a latent "
+                         f"width R a multiple of 32 up to 512 and a rope width a multiple "
+                         f"of 8 up to 128 (got H={h}, R={r}, rope {rd})")
+    code = _check_cuda(name, ckv_pool.dtype, *tensors)
+    if ckv_pool.data_ptr() % 16 or krope_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: the pools must start 16-byte aligned")
+    out = torch.empty((b, h, r), dtype=torch.float32, device=q_lat.device)
+    if b:
+        _launch(name, q_lat.device, *(t.data_ptr() for t in tensors), out.data_ptr(),
+                b, h, r, rd, ps, page_table.shape[1], qk_dim, code)
     return out
 
 

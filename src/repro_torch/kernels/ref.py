@@ -197,6 +197,35 @@ def paged_gqa_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return decode_attention(q, k, v, _valid(pos, k.shape[1]))
 
 
+def mla_attention(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
+                  krope: torch.Tensor, valid: torch.Tensor, qk_dim: int) -> torch.Tensor:
+    """MLA absorbed decode over a dense latent cache, all in f32.
+
+    q_lat: (B, H, R) f32 (q_nope absorbed through W_uk); q_rope: (B, H,
+    rd) f32; ckv: (B, W, R); krope: (B, W, rd); valid: (B, W) bool.
+    Scores q_lat.ckv + q_rope.krope over sqrt(qk_dim), NEG_INF where not
+    valid, softmax, o_lat = p.ckv (B, H, R) f32.  Latent rows that are
+    not valid are zeroed first, so whatever a dead position holds (even
+    NaN) cannot reach the output."""
+    ckv_f = torch.where(valid[..., None], ckv.float(), 0.0)
+    s = (torch.einsum("bhr,bkr->bhk", q_lat, ckv_f)
+         + torch.einsum("bhd,bkd->bhk", q_rope, krope.float()))
+    s = s / math.sqrt(qk_dim)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    return torch.einsum("bhk,bkr->bhr", torch.softmax(s, dim=-1), ckv_f)
+
+
+def paged_mla_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                            ckv_pool: torch.Tensor, krope_pool: torch.Tensor,
+                            page_table: torch.Tensor, pos: torch.Tensor,
+                            qk_dim: int) -> torch.Tensor:
+    """MLA absorbed decode over paged latent pools: gather each slot's
+    pages into a dense (B, max_pages*page_size) latent cache, then
+    :func:`mla_attention` over positions <= pos[b]."""
+    ckv, krope = _gather_pages(ckv_pool, page_table), _gather_pages(krope_pool, page_table)
+    return mla_attention(q_lat, q_rope, ckv, krope, _valid(pos, ckv.shape[1]), qk_dim)
+
+
 def _valid(pos: torch.Tensor, w: int) -> torch.Tensor:
     return torch.arange(w, device=pos.device)[None, :] <= pos[:, None]
 

@@ -302,6 +302,7 @@ class ContinuousBatchingEngine:
         self._pages_per_req: list = []
         self._shared_prompt_tokens = 0
         self._total_prompt_tokens = 0
+        self._n_prefix_hits = 0
         if self.paged:
             self._page_table = np.zeros((n, self.max_pages), np.int32)
             self._push_page_table()
@@ -391,6 +392,7 @@ class ContinuousBatchingEngine:
             self._pages_per_req.append(len(pages))
             self._shared_prompt_tokens += lp
             self._total_prompt_tokens += length
+            self._n_prefix_hits += bool(lp)
         else:
             pages = None
             bucket = pick_bucket(length, self.buckets)
@@ -523,6 +525,9 @@ class ContinuousBatchingEngine:
                                        if self._pages_per_req else 0.0),
             "prefix_hit_rate": (self._shared_prompt_tokens / self._total_prompt_tokens
                                 if self._total_prompt_tokens else 0.0),
+            # prefills that continued a shared prefix (their continuation
+            # prefill reads the prefix's cache)
+            "n_prefix_hits": self._n_prefix_hits,
             "evictions": self.n_evictions,
             "backend": self.ecfg.backend if self.ecfg.plan is None else "custom-plan",
             "plan": self.plan.describe(),

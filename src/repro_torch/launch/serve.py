@@ -7,8 +7,9 @@ sharing); ``--engine both`` runs the two and checks that every request's
 engine tokens equal its ``greedy_generate`` tokens.  A divergence is
 accepted only at a near-tie: where greedy's two top logits at the first
 diverging step differ by no more than the noise that bf16 rounding at
-other places puts on such a gap (see ``parity_report``), which can flip
-the step.
+other places puts on such a gap, or, in an MoE model, where the step's
+router puts its k-th and (k+1)-th experts that close (see
+``parity_report``): either can flip the step.
 
 The continuous engine resolves its own plan from its slot count and
 largest prefill bucket (for an MoE arch its MoE route may then differ
@@ -19,6 +20,8 @@ row).  Runs on ``cuda`` unless ``--device cpu``.  Prompts are drawn from
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m --engine both
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \
       --engine both --requests 1 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_v3_671b --smoke \
+      --device cpu --engine both
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import argparse
 import math
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from repro_torch.core import execplan
 from repro_torch.device import resolve_device
 from repro_torch.launch.engine import ContinuousBatchingEngine, EngineConfig, Request
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.train.step import greedy_generate, replay_logits
 
 # a near-tie is a top-2 gap within this many standard deviations of the
@@ -67,6 +72,9 @@ _ATTENTION_ROUTES = {
     ("dense", "int8"): "ops.ring_quant_gqa_attention",
     ("dense", "nf4"): "ops.ring_nf4_gqa_attention",
 }
+
+_MLA_ROUTES = {"paged": "ops.paged_mla_attention",
+               "dense": "plain MLA latent attention"}
 
 
 # the expert-stack op family of a kernel route, by SALR method (a masked
@@ -101,9 +109,14 @@ def route_line(cfg, plan: execplan.ExecutionPlan) -> str:
         if cfg.n_experts:   # gate/up/down are expert stacks: the moe= op
             desc = desc.replace("wq/wk/wv/gate/up", "wq/wk/wv").replace("wo/down", "wo")
             desc += f", moe={moe_op(r, cfg.salr.method, bool(quant))}"
-        desc += f", kv_dtype={r.kv_dtype}"
-        if phase == "decode":
-            desc += f", attention={_ATTENTION_ROUTES[r.kv, r.kv_dtype]}"
+        if cfg.mla is not None:   # latents stay in the model dtype
+            desc += ", kv_dtype=native (MLA latents)"
+            if phase == "decode":
+                desc += f", attention={_MLA_ROUTES[r.kv]} (W_uk/W_uv absorbed)"
+        else:
+            desc += f", kv_dtype={r.kv_dtype}"
+            if phase == "decode":
+                desc += f", attention={_ATTENTION_ROUTES[r.kv, r.kv_dtype]}"
         parts.append(f"route[{phase}]={desc}")
     return "  ".join(parts)
 
@@ -146,15 +159,46 @@ def run_continuous(cfg, params, prompts: np.ndarray, gen: int, n_slots: int,
     return eng, results, metrics
 
 
+def _rms(x: torch.Tensor) -> float:
+    return float(x.square().mean().sqrt())
+
+
+def _topk_margin(router_logits: torch.Tensor, k: int) -> float:
+    """How far apart a token's k-th and (k+1)-th router logits lie."""
+    v = router_logits.topk(k + 1).values
+    return float(v[k - 1] - v[k])
+
+
+class Divergence(NamedTuple):
+    """A request's first step where the engine's token is not greedy's."""
+    rid: int
+    step: int
+    gap: float             # greedy's top-2 logit gap at the step
+    limit: float           # the gap's near-tie limit
+    near_tie: object       # "top-2", "router" or False
+    router_margin: float   # the MoE layer nearest a top-k tie: its margin
+    router_limit: float    # and the margin's near-tie limit (inf, 0: no MoE)
+
+
 def parity_report(cfg, params, prompts: np.ndarray, greedy: np.ndarray,
                   results: dict, plan) -> list:
-    """Per diverging request: (rid, step, top-2 logit gap, near-tie limit,
-    near_tie).  The logits are greedy's at the first diverging step,
-    recomputed on ``plan`` and on the reference route (the same base repr
-    and KV precision, with plain linears and attention).  The rms
-    difference of the two routes' logits at that step measures the noise
-    bf16 rounding at other places puts on one logit; a gap carries
-    sqrt(2) times it, and the limit is ``NEAR_TIE_SIGMAS`` of that.
+    """A ``Divergence`` per diverging request.  The logits are greedy's at
+    the first diverging step, recomputed on ``plan`` and on the reference
+    route (the same base repr and KV precision, with plain linears and
+    attention).  The rms difference of the two routes' logits at that
+    step measures the noise bf16 rounding at other places puts on one
+    logit; a gap carries sqrt(2) times it, and the limit is
+    ``NEAR_TIE_SIGMAS`` of that.
+
+    An MoE layer makes a second discrete choice per token, its top-k
+    experts, and one expert more or less moves the logits far beyond that
+    noise.  So a step is also a near-tie where, at some MoE layer, the
+    step's router logits put the k-th and (k+1)-th experts no further
+    apart than ``NEAR_TIE_SIGMAS`` times sqrt(2) times the rms difference
+    of the two routes' router logits there, and the step recomputed with
+    those two experts swapped puts the engine's token within the top-2
+    limit of its top logit: the other side of the tie gives the engine's
+    token.
 
     Where decode reads another base repr or KV precision than prefill (a
     mixed-precision plan), a step after the first is recomputed by
@@ -164,6 +208,8 @@ def parity_report(cfg, params, prompts: np.ndarray, greedy: np.ndarray,
     ref_plan = execplan.resolve_plan(cfg, backend="reference")
     mixed = any(getattr(plan.route("decode"), f) != getattr(plan.route("prefill"), f)
                 for f in ("repr", "kv_dtype"))
+    n_moe = sum(mlp == "moe" for _, mlp in M.layer_kinds(cfg))
+    k = cfg.experts_per_token
     out = []
     for i, p in enumerate(prompts):
         eng_toks = np.asarray(results[i].tokens)
@@ -171,21 +217,35 @@ def parity_report(cfg, params, prompts: np.ndarray, greedy: np.ndarray,
         if not len(diff):
             continue
         step = int(diff[0])
-        if mixed and step > 0:
-            prompt = torch.from_numpy(p[None].astype(np.int32)).to(dev)
-            toks = torch.from_numpy(greedy[i:i + 1, :step + 1].astype(np.int32)).to(dev)
-            logits, ref_logits = (replay_logits(params, cfg, prompt, toks, plan=pl)[0, -1]
-                                  for pl in (plan, ref_plan))
-        else:
+
+        def run(pl):
+            if mixed and step > 0:
+                prompt = torch.from_numpy(p[None].astype(np.int32)).to(dev)
+                toks = torch.from_numpy(greedy[i:i + 1, :step + 1].astype(np.int32)).to(dev)
+                return replay_logits(params, cfg, prompt, toks, plan=pl)[0, -1]
             seq = np.concatenate([p, greedy[i, :step]])[None].astype(np.int32)
-            seq = torch.from_numpy(seq).to(dev)
-            logits, ref_logits = (M.prefill(params, cfg, seq, plan=pl)[0][0, -1].float()
-                                  for pl in (plan, ref_plan))
+            return M.prefill(params, cfg, torch.from_numpy(seq).to(dev), plan=pl)[0][0, -1].float()
+
+        routed = []
+        for pl in (plan, ref_plan):
+            with moe.router_logits_tap() as calls:   # the step's token, per MoE layer
+                routed.append((run(pl), len(calls) - n_moe,
+                               [c[-1] for c in calls[len(calls) - n_moe:]]))
+        (logits, first_moe, routers), (ref_logits, _, ref_routers) = routed
         top2 = logits.topk(2).values.cpu().numpy()
         gap = float(top2[0] - top2[1])
-        noise = float((logits - ref_logits).square().mean().sqrt())
-        limit = NEAR_TIE_SIGMAS * math.sqrt(2) * noise
-        out.append((i, step, gap, limit, gap <= limit))
+        limit = NEAR_TIE_SIGMAS * math.sqrt(2) * _rms(logits - ref_logits)
+        margins = [(_topk_margin(r, k), NEAR_TIE_SIGMAS * math.sqrt(2) * _rms(r - rr))
+                   for r, rr in zip(routers, ref_routers)]
+        tie = "top-2" if gap <= limit else False
+        for j, (margin, r_limit) in enumerate(margins):
+            if not tie and margin <= r_limit:
+                with moe.router_logits_tap(swap_at=first_moe + j):
+                    swapped = run(plan)
+                if float(swapped.max() - swapped[int(eng_toks[step])]) <= limit:
+                    tie = "router"
+        margin, r_limit = min(margins, key=lambda m: m[0] - m[1], default=(math.inf, 0.0))
+        out.append(Divergence(i, step, gap, limit, tie, margin, r_limit))
     return out
 
 
@@ -242,11 +302,13 @@ def main(argv=None) -> int:
                       f"kv={m['kv_layout']}, prefix hit rate {m['prefix_hit_rate']:.2f}")
             if greedy is not None and args.engine == "both":
                 report = parity_report(cfg, params, prompts, greedy, results, plan)
-                for rid, step, gap, limit, tie in report:
-                    print(f"request {rid}: diverges at step {step}, top-2 gap "
-                          f"{gap:.4g} (near-tie limit {limit:.4g}) -> "
-                          f"{'near-tie, accepted' if tie else 'NOT a near-tie'}")
-                if all(r[4] for r in report):
+                for d in report:
+                    verdict = f"near-tie ({d.near_tie}), accepted" if d.near_tie else \
+                        "NOT a near-tie"
+                    print(f"request {d.rid}: diverges at step {d.step}, top-2 gap "
+                          f"{d.gap:.4g} (near-tie limit {d.limit:.4g}), router margin "
+                          f"{d.router_margin:.4g} (limit {d.router_limit:.4g}) -> {verdict}")
+                if all(d.near_tie for d in report):
                     print(f"parity OK: {len(prompts) - len(report)}/{len(prompts)} "
                           "requests match greedy_generate exactly, the rest "
                           "diverge only at near-ties")

@@ -1,5 +1,5 @@
-"""GQA attention: blockwise (online softmax) attention for train and
-prefill, one-token decode over a dense slot cache or a paged pool.
+"""GQA and MLA attention: blockwise (online softmax) attention for train
+and prefill, one-token decode over a dense slot cache or a paged pool.
 
 KV caches come in three precisions: native (the model dtype), int8 and
 NF4, each with one f32 absmax scale per (position, KV head).  Decode over
@@ -8,6 +8,11 @@ a native dense cache is plain torch; every other decode runs a kernel
 that kernel's plain version on the reference route.  NF4 KV codes use the
 SPLIT nibble layout (byte i of a head-dim row holds element i low and
 element i + d/2 high), unlike the weights' interleaved layout.
+
+MLA (DeepSeek) caches only the compressed latent c_kv and the shared rope
+key per position (``LatentCache``, ``PagedLatentCache``), always in the
+model dtype; its decode absorbs W_uk into the query and attends in latent
+space (``ops.paged_mla_attention`` on paged pools).
 
 Caches are updated IN PLACE at decode (the reference builds new arrays
 each step): the engine owns one cache for its lifetime, and an in-place
@@ -23,8 +28,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quant import nf4_index, nf4_levels
+from repro_torch.core.salr import SALRLinear, effective_weight
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ref import NEG_INF, decode_attention
+from repro_torch.kernels.ref import NEG_INF, decode_attention, mla_attention
 from repro_torch.models.layers import (apply_linear, apply_rmsnorm, apply_rope,
                                        init_linear, init_rmsnorm)
 
@@ -82,6 +88,21 @@ class PagedNF4KVCache:
     v: torch.Tensor        # (P, page_size, KH, dv/2) uint8
     k_scale: torch.Tensor  # (P, page_size, KH) f32
     v_scale: torch.Tensor  # (P, page_size, KH) f32
+
+
+@dataclasses.dataclass
+class LatentCache:
+    """MLA cache: latent c_kv + shared rope key; position i of row b lives
+    at [b, i]."""
+    ckv: torch.Tensor     # (B, W, kv_rank)
+    krope: torch.Tensor   # (B, W, rope_dim)
+
+
+@dataclasses.dataclass
+class PagedLatentCache:
+    """Paged MLA latent pools (page 0 the null page, as ``PagedKVCache``)."""
+    ckv: torch.Tensor     # (P, page_size, kv_rank)
+    krope: torch.Tensor   # (P, page_size, rope_dim)
 
 
 def q8(x: torch.Tensor):
@@ -267,9 +288,10 @@ def apply_gqa(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
     return x + y, new_cache
 
 
-# the KV precision each cache type stores
+# the KV precision each cache type stores (MLA latents: the model dtype)
 KV_DTYPE_OF = {KVCache: "native", QuantKVCache: "int8", NF4KVCache: "nf4",
-             PagedKVCache: "native", PagedQuantKVCache: "int8", PagedNF4KVCache: "nf4"}
+               PagedKVCache: "native", PagedQuantKVCache: "int8", PagedNF4KVCache: "nf4",
+               LatentCache: "native", PagedLatentCache: "native"}
 # the decode-attention kernel (ops) and plain version (ref, + "_ref") of
 # each cache type a kernel reads, and whether it takes a page table
 _DECODE_ATTENTION = {PagedKVCache: ("paged_gqa_attention", True),
@@ -319,3 +341,143 @@ def init_paged_gqa_cache(cfg: ArchConfig, n_pages: int, page_size: int, dtype,
     (default ``cfg.kv_cache``)."""
     return _alloc((n_pages, page_size), cfg, dtype, kv_dtype or cfg.kv_cache, device,
                   True)
+
+
+# ------------------------------------------------------------------ MLA
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, device):
+    """MLA projections: dq, uq, dkv, uk, uv store W^T when flat (the
+    reference builds them transposed), wo does not."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def lin(d_in, d_out, transposed=True):
+        return init_linear(gen, d_in, d_out, cfg, "attn", device, transposed=transposed)
+    return {"norm": init_rmsnorm(d, cfg, device),
+            "dq": lin(d, m.q_lora_rank),
+            "qnorm": init_rmsnorm(m.q_lora_rank, cfg, device),
+            "uq": lin(m.q_lora_rank, h * qk),
+            "dkv": lin(d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "kvnorm": init_rmsnorm(m.kv_lora_rank, cfg, device),
+            "uk": lin(m.kv_lora_rank, h * m.qk_nope_head_dim),
+            "uv": lin(m.kv_lora_rank, h * m.v_head_dim),
+            "wo": lin(h * m.v_head_dim, d, transposed=False)}
+
+
+def _mla_q(p, xn: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, route):
+    """(q_nope, q_rope) (B, S, H, nope / rope), q_rope rotated."""
+    m = cfg.mla
+    b, s, _ = xn.shape
+    cq = apply_rmsnorm(p["qnorm"], apply_linear(p["dq"], xn, route), cfg.norm_eps)
+    q = apply_linear(p["uq"], cq, route).reshape(b, s, cfg.n_heads, -1)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, xn: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, route):
+    """(c_kv normed (B, S, R), rope key rotated (B, S, rope))."""
+    m = cfg.mla
+    ckv, krope = apply_linear(p["dkv"], xn, route).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    ckv = apply_rmsnorm(p["kvnorm"], ckv, cfg.norm_eps)
+    return ckv, apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+
+def _mla_kv(p, ckv: torch.Tensor, krope: torch.Tensor, cfg: ArchConfig, route):
+    """Decompressed per-head K (nope through W_uk, the shared rope key
+    broadcast) and V (through W_uv) of latents (B, S, R) / (B, S, rope)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = ckv.shape
+    k_nope = apply_linear(p["uk"], ckv, route).reshape(b, s, h, m.qk_nope_head_dim)
+    v = apply_linear(p["uv"], ckv, route).reshape(b, s, h, m.v_head_dim)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)
+                   .to(k_nope.dtype)], dim=-1)
+    return k, v
+
+
+def _dense_weight(lin) -> torch.Tensor:
+    """The effective dense (d_in, d_out) weight of a (possibly SALR)
+    linear, rebuilt on every call as the reference does."""
+    return effective_weight(lin) if isinstance(lin, SALRLinear) else lin["w"]
+
+
+def apply_mla(p, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor, mode: str,
+              cache=None, pos=None, route=None, page_table: Optional[torch.Tensor] = None,
+              prefix: Optional[LatentCache] = None, q_offset: int = 0):
+    """MLA attention.  mode: train | prefill | decode.  Returns (x + y,
+    cache).  Prefill decompresses q, k, v and runs blockwise attention,
+    caching only (c_kv, k_rope) of this call's positions; a shared
+    ``prefix`` (dense batch=1 LatentCache) is decompressed again through
+    W_uk / W_uv and attended before the suffix (see ``apply_gqa``).
+    Decode writes the step's latents into ``cache`` in place and absorbs
+    W_uk into the query (q_lat = q_nope . W_uk^T), attends over the
+    latents -- ``ops.paged_mla_attention`` on paged pools (its plain
+    version on the reference route), plain torch on a slot
+    ``LatentCache`` -- then applies W_uv and wo."""
+    m, h = cfg.mla, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    xn = apply_rmsnorm(p["norm"], x, cfg.norm_eps)
+
+    if mode in ("train", "prefill"):
+        q_nope, q_rope = _mla_q(p, xn, cfg, positions, route)
+        ckv, krope = _mla_latent(p, xn, cfg, positions, route)
+        k, v = _mla_kv(p, ckv, krope, cfg, route)
+        if prefix is not None:
+            k_p, v_p = _mla_kv(p, prefix.ckv, prefix.krope, cfg, route)
+            k = torch.cat([k_p.to(k.dtype), k], dim=1)
+            v = torch.cat([v_p.to(v.dtype), v], dim=1)
+        y = blockwise_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+                                q_offset=q_offset)
+        new_cache = LatentCache(ckv=ckv, krope=krope) if mode == "prefill" else None
+        y = apply_linear(p["wo"], y.reshape(*y.shape[:2], h * m.v_head_dim), route)
+        return x + y, new_cache
+
+    b = x.shape[0]
+    pv = pos_vector(pos, b, x.device)
+    rows = torch.arange(b, device=x.device)
+    q_nope, q_rope = _mla_q(p, xn, cfg, pv[:, None], route)
+    ckv_new, krope_new = _mla_latent(p, xn, cfg, pv[:, None], route)
+    paged = isinstance(cache, PagedLatentCache)
+    if paged:
+        ps = cache.ckv.shape[1]
+        where = (page_table[rows, (pv // ps).long()], (pv % ps).long())
+    elif isinstance(cache, LatentCache):
+        where = (rows, pv.long())
+    else:
+        raise TypeError(f"MLA decode needs a latent cache, got {type(cache)}")
+    _write(cache, where, LatentCache(ckv=ckv_new, krope=krope_new))
+
+    # absorb: q_lat[h] = q_nope[h] . W_uk[:, h]^T, scored against the latents
+    wuk = _dense_weight(p["uk"]).reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wuk.float()).contiguous()
+    qr = q_rope[:, 0].float().contiguous()
+    if paged:
+        fn = (ref.paged_mla_attention_ref if getattr(route, "linear", None) == "reference"
+              else ops.paged_mla_attention)
+        o_lat = fn(q_lat, qr, cache.ckv, cache.krope, page_table, pv, qk_dim=qk_dim)
+    else:
+        valid = torch.arange(cache.ckv.shape[1], device=x.device)[None, :] <= pv[:, None]
+        o_lat = mla_attention(q_lat, qr, cache.ckv, cache.krope, valid, qk_dim)
+    wuv = _dense_weight(p["uv"]).reshape(m.kv_lora_rank, h, m.v_head_dim)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wuv.float())
+    y = apply_linear(p["wo"], o.reshape(b, 1, h * m.v_head_dim).to(x.dtype), route)
+    return x + y, cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, ctx: int, dtype, device) -> LatentCache:
+    """Dense (batch, ctx) latent cache in the model dtype."""
+    m = cfg.mla
+    return LatentCache(
+        ckv=torch.zeros((batch, ctx, m.kv_lora_rank), dtype=dtype, device=device),
+        krope=torch.zeros((batch, ctx, m.qk_rope_head_dim), dtype=dtype, device=device))
+
+
+def init_paged_mla_cache(cfg: ArchConfig, n_pages: int, page_size: int, dtype,
+                         device) -> PagedLatentCache:
+    """Global latent page pools (page 0 = reserved null page) in the model
+    dtype."""
+    m = cfg.mla
+    return PagedLatentCache(
+        ckv=torch.zeros((n_pages, page_size, m.kv_lora_rank), dtype=dtype, device=device),
+        krope=torch.zeros((n_pages, page_size, m.qk_rope_head_dim), dtype=dtype,
+                          device=device))

@@ -7,8 +7,9 @@ Parameters are plain dicts: ``{"embed": {"table"}, "layers": [...],
 layer in execution order (a Python loop where the reference scans over
 stacked repeats): ``{"mixer", "mlp_norm", "mlp"}`` for a SwiGLU layer,
 ``{"mixer", "moe"}`` for an MoE layer (the MoE block carries its own
-norm).  Caches mirror that: ``{"layers": [{"mixer": cache}],
-"page_table": ...}``.
+norm).  The mixer is GQA (``attn``) or MLA (``mla``), its cache a K/V
+cache or a latent cache.  Caches mirror that: ``{"layers": [{"mixer":
+cache}], "page_table": ...}``.
 """
 from __future__ import annotations
 
@@ -27,20 +28,33 @@ from repro_torch.models.layers import (apply_embedding, apply_lm_head, apply_mlp
                                        init_mlp, init_rmsnorm, model_dtype)
 
 
+# mixers whose decode cache lives in global page pools
+PAGEABLE_KINDS = ("attn", "mla")
+
+
 def layer_kinds(cfg: ArchConfig) -> list:
-    """(mixer kind, mlp kind) of every decoder layer in execution order."""
-    if (cfg.family not in ("dense", "moe") or cfg.encoder_groups or cfg.frontend
-            or cfg.first_dense_layers):
+    """(mixer kind, mlp kind) of every decoder layer in execution order.
+    Each layer's MLP is its ``LayerGroup``'s (``first_dense_layers`` is
+    metadata, as in the reference)."""
+    if cfg.family not in ("dense", "moe") or cfg.encoder_groups or cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not yet ported")
     out = []
     for g in cfg.layer_groups:
         mlp = g.mlp if g.mlp is not None else cfg.mlp
         for _ in range(g.repeats):
             for kind in g.pattern:
-                if kind != "attn":
+                if kind not in PAGEABLE_KINDS:
                     raise NotImplementedError(f"mixer {kind!r} is not yet ported")
                 out.append((kind, mlp))
     return out
+
+
+_INIT_MIXER = {"attn": attn.init_gqa, "mla": attn.init_mla}
+_APPLY_MIXER = {"attn": attn.apply_gqa, "mla": attn.apply_mla}
+
+
+def _mixer_kind(p) -> str:
+    return "mla" if "dkv" in p else "attn"
 
 
 def _route(plan: Optional[execplan.ExecutionPlan], cfg: ArchConfig, phase: str):
@@ -55,8 +69,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None):
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     layers = []
-    for _, mlp in layer_kinds(cfg):
-        layer = {"mixer": attn.init_gqa(gen, cfg, dev)}
+    for kind, mlp in layer_kinds(cfg):
+        layer = {"mixer": _INIT_MIXER[kind](gen, cfg, dev)}
         if mlp == "moe":
             layer["moe"] = moe.init_moe(gen, cfg, dev)
         else:
@@ -76,9 +90,10 @@ def params_device(params) -> torch.device:
 def apply_layer(p, x, cfg: ArchConfig, *, mode: str, positions=None, cache=None,
                 pos=None, route=None, page_table=None, prefix_cache=None,
                 q_offset: int = 0):
-    """One block: attention then the SwiGLU MLP or the MoE layer (which
-    follows the route's ``moe``).  Returns (x, new_cache)."""
-    x, new_mixer = attn.apply_gqa(
+    """One block: attention (GQA or MLA, by the mixer's parameters) then
+    the SwiGLU MLP or the MoE layer (which follows the route's ``moe``).
+    Returns (x, new_cache)."""
+    x, new_mixer = _APPLY_MIXER[_mixer_kind(p["mixer"])](
         p["mixer"], x, cfg, positions=positions, mode=mode,
         cache=cache["mixer"] if cache else None, pos=pos, route=route,
         page_table=page_table,
@@ -137,11 +152,13 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos,
 
 def init_cache(cfg: ArchConfig, batch: int, ctx: int, device, kv_dtype: str = None):
     """Dense decode cache: one (batch, ctx) cache per layer at
-    ``kv_dtype`` (default ``cfg.kv_cache``; pass the decode route's)."""
+    ``kv_dtype`` (default ``cfg.kv_cache``; pass the decode route's); an
+    MLA layer's latent cache is in the model dtype whatever ``kv_dtype``."""
     dt = model_dtype(cfg)
-    return {"layers": [{"mixer": attn.init_gqa_cache(cfg, batch, ctx, dt, device,
-                                                     kv_dtype=kv_dtype)}
-                       for _ in layer_kinds(cfg)]}
+    return {"layers": [{"mixer": attn.init_mla_cache(cfg, batch, ctx, dt, device)
+                        if kind == "mla" else
+                        attn.init_gqa_cache(cfg, batch, ctx, dt, device, kv_dtype=kv_dtype)}
+                       for kind, _ in layer_kinds(cfg)]}
 
 
 def init_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, device,
@@ -186,14 +203,17 @@ def insert_cache_slot(cache, request_cache, slot: int):
 def init_paged_slot_cache(cfg: ArchConfig, n_slots: int, ctx: int, *,
                           page_size: int, n_pages: int, device, kv_dtype: str = None):
     """Paged decode cache: per layer one global K/V page pool at
-    ``kv_dtype`` (default ``cfg.kv_cache``), plus ``page_table``
-    (n_slots, ceil(ctx/page_size)) int32.  Pool page 0 is the reserved
-    null page, so the all-zero table owns no pages."""
+    ``kv_dtype`` (default ``cfg.kv_cache``) or, for an MLA layer, latent
+    pools in the model dtype, plus ``page_table`` (n_slots,
+    ceil(ctx/page_size)) int32.  Pool page 0 is the reserved null page,
+    so the all-zero table owns no pages."""
     dt = model_dtype(cfg)
     max_pages = -(-ctx // page_size)
-    return {"layers": [{"mixer": attn.init_paged_gqa_cache(cfg, n_pages, page_size,
-                                                           dt, device, kv_dtype=kv_dtype)}
-                       for _ in layer_kinds(cfg)],
+    return {"layers": [{"mixer": attn.init_paged_mla_cache(cfg, n_pages, page_size, dt, device)
+                        if kind == "mla" else
+                        attn.init_paged_gqa_cache(cfg, n_pages, page_size, dt, device,
+                                                  kv_dtype=kv_dtype)}
+                       for kind, _ in layer_kinds(cfg)],
             "page_table": torch.zeros((n_slots, max_pages), dtype=torch.int32,
                                       device=device)}
 
@@ -209,26 +229,29 @@ def insert_paged_cache_slot(cache, request_cache, slot: int, start: int):
     for lc, rc in zip(cache["layers"], request_cache["layers"]):
         pool = lc["mixer"]
         req = quantize_request(pool, rc["mixer"])
-        ps, t = pool.k.shape[1], req.k.shape[1]
-        positions = start + torch.arange(t, device=pool.k.device)
+        fields = cache_fields(pool)
+        first = fields[0][1]
+        ps, t = first.shape[1], getattr(req, fields[0][0]).shape[1]
+        positions = start + torch.arange(t, device=first.device)
         pages, off = page_row[positions // ps], positions % ps
-        for name, dst in cache_fields(pool):
+        for name, dst in fields:
             dst[pages, off] = getattr(req, name)[0].to(dst.dtype)
     return cache
 
 
 def gather_prefix_cache(cache, page_row: torch.Tensor):
     """Gather the pool pages in ``page_row`` ((n_hit,) int) into a dense
-    batch=1 prefix cache for continuation prefill (native pools only:
-    prefix sharing is off when decode KV is quantized)."""
+    batch=1 prefix cache for continuation prefill (native K/V or latent
+    pools only: prefix sharing is off when decode KV is quantized)."""
+    dense_of = {attn.PagedKVCache: attn.KVCache, attn.PagedLatentCache: attn.LatentCache}
     layers = []
     for lc in cache["layers"]:
         pool = lc["mixer"]
-        if not isinstance(pool, attn.PagedKVCache):
+        if type(pool) not in dense_of:
             raise TypeError(f"prefix sharing needs native pools, got {type(pool).__name__}")
-        k, v = pool.k[page_row], pool.v[page_row]
-        layers.append({"mixer": attn.KVCache(k=k.reshape(1, -1, *k.shape[2:]),
-                                             v=v.reshape(1, -1, *v.shape[2:]))})
+        gathered = {name: t[page_row].reshape(1, -1, *t.shape[2:])
+                    for name, t in cache_fields(pool)}
+        layers.append({"mixer": dense_of[type(pool)](**gathered)})
     return {"layers": layers}
 
 

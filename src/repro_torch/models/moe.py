@@ -24,11 +24,14 @@ bitwise equal per row and bitwise invariant to co-batched tokens; each
 combines a token's k expert outputs in top-k slot order 0..k-1.  A
 quantized base repr (the phase's ``repr``) reads a tiled stack's NF4
 twin on the kernel routes and any stack's twin on the oracle, as the
-reference does.  The kernel wrappers are forward-only; shared experts
-(DeepSeek) come with the MLA slice.
+reference does.  Shared experts (DeepSeek) are one dense SwiGLU of width
+``moe_d_ff x n_shared_experts`` over every token, through
+``apply_linear``, added to the routed experts' output.  The kernel
+wrappers are forward-only.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -39,7 +42,42 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core import execplan
 from repro_torch.core import salr
 from repro_torch.core.salr import SALRLinear
-from repro_torch.models.layers import apply_rmsnorm, init_rmsnorm, model_dtype, salr_cfg_for
+from repro_torch.models.layers import (apply_linear, apply_rmsnorm, init_linear, init_rmsnorm,
+                                       model_dtype, salr_cfg_for)
+
+# the most weights of an expert stack drawn, compressed or decoded at once:
+# a larger stack (deepseek_v3_671b's 256 x 7168 x 2048) is handled in
+# chunks along E; an expert's compress and its product depend on its own
+# weights only, so chunking changes no expert's value
+STACK_CHUNK_ELEMS = 1 << 28
+
+# the open ``router_logits_tap`` lists, each collecting route_tokens' logits
+_TAPS: list = []
+
+
+class RouterTap(list):
+    """The (N, E) f32 router logits of every ``route_tokens`` call made
+    while the tap is open, in call order (a forward routes its MoE layers
+    in order).  The call numbered ``swap_at`` gives its last token the
+    (k+1)-th expert in place of the k-th: the other side of a top-k
+    near-tie."""
+
+    def __init__(self, swap_at: Optional[int] = None):
+        super().__init__()
+        self.swap_at = swap_at
+
+
+@contextlib.contextmanager
+def router_logits_tap(swap_at: Optional[int] = None):
+    """Open a ``RouterTap`` for the calls made inside the block.
+    ``serve.parity_report`` reads a token's top-k margin here and replays
+    the step with a tied pair swapped."""
+    tap = RouterTap(swap_at)
+    _TAPS.append(tap)
+    try:
+        yield tap
+    finally:
+        _TAPS.remove(tap)
 
 
 def route_tokens(router_w: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig):
@@ -59,6 +97,11 @@ def route_tokens(router_w: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig):
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
+    for tap in _TAPS:
+        if tap.swap_at == len(tap):
+            for t in (top_p, top_i):
+                t[-1, [k - 1, k]] = t[-1, [k, k - 1]]
+        tap.append(logits)
     top_p, top_i = top_p[:, :k], top_i[:, :k]
     keep = top_p >= cfg.moe_drop_threshold
     w = torch.where(keep, top_p, torch.zeros((), dtype=top_p.dtype, device=top_p.device))
@@ -79,22 +122,40 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, device):
     """Router (d, E) f32, the MoE norm, and the gate/up (E, d, moe_d_ff)
     and down (E, moe_d_ff, d) expert stacks, each W ~ N(0, 1/d_in),
     compressed through ``salr.compress_stack`` when the ``expert`` target
-    is enabled (else a plain ``{"w"}`` stack in the model dtype)."""
-    if cfg.n_shared_experts:
-        raise NotImplementedError("shared experts are not yet ported "
-                                  "(they come with the MLA/deepseek slice)")
+    is enabled (else a plain ``{"w"}`` stack in the model dtype), in
+    chunks of experts of at most ``STACK_CHUNK_ELEMS`` weights, each chunk
+    drawn on ``device`` from a generator seeded from ``gen`` (a deepseek
+    stack is too large to draw on the host in time); with
+    ``n_shared_experts``, the shared SwiGLU's gate/up (stored W^T when
+    flat, as the reference builds them) and down."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    compress = cfg.salr.enabled and "expert" in cfg.salr.targets
 
     def expert_stack(d_in, d_out):
-        w = (torch.randn((e, d_in, d_out), generator=gen) / math.sqrt(d_in)).to(device)
-        if cfg.salr.enabled and "expert" in cfg.salr.targets:
-            return salr.compress_stack(gen, w, salr_cfg_for(cfg))
-        return {"w": w.to(model_dtype(cfg))}
+        chunk = max(1, STACK_CHUNK_ELEMS // (d_in * d_out))
+        parts = []
+        for e0 in range(0, e, chunk):
+            dgen = torch.Generator(device).manual_seed(
+                int(torch.randint(1 << 62, (1,), generator=gen)))
+            w = torch.randn((min(chunk, e - e0), d_in, d_out), generator=dgen,
+                            device=device) / math.sqrt(d_in)
+            parts.append(salr.compress_stack(gen, w, salr_cfg_for(cfg)) if compress
+                         else w.to(model_dtype(cfg)))
+            del w
+        stack = parts[0] if len(parts) == 1 else salr.cat_stacks(parts)
+        return stack if compress else {"w": stack}
 
     router = torch.randn((d, e), generator=gen) / math.sqrt(d)
-    return {"norm": init_rmsnorm(d, cfg, device),
-            "router": {"w": router.to(device=device, dtype=torch.float32)},
-            "gate": expert_stack(d, f), "up": expert_stack(d, f), "down": expert_stack(f, d)}
+    p = {"norm": init_rmsnorm(d, cfg, device),
+         "router": {"w": router.to(device=device, dtype=torch.float32)},
+         "gate": expert_stack(d, f), "up": expert_stack(d, f), "down": expert_stack(f, d)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {
+            "gate": init_linear(gen, d, fs, cfg, "expert", device, transposed=True),
+            "up": init_linear(gen, d, fs, cfg, "expert", device, transposed=True),
+            "down": init_linear(gen, fs, d, cfg, "expert", device)}
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -117,13 +178,22 @@ def _expert_matmul(stack, x: torch.Tensor, base_repr=None) -> torch.Tensor:
     (E, N, d_in) per expert.  Returns (E, N, d_out): the stack decoded
     dense and multiplied as the reference's per-expert
     ``_apply_reference`` does (a quantized ``base_repr`` decodes the NF4
-    twin, a dense or masked stack's ``QDenseWeight`` included)."""
+    twin, a dense or masked stack's ``QDenseWeight`` included), a chunk of
+    experts at a time."""
     if not isinstance(stack, SALRLinear):
         return x @ stack["w"].to(x.dtype)
     quant = salr._resolve_repr(base_repr) != "native" and stack.qbase is not None
-    w = salr.materialize_base(stack.qbase if quant else stack.base)[..., :stack.d_out]
+    base = stack.qbase if quant else stack.base
     a_cat, b_cat = _stacked_adapter_cat(stack)
-    return x @ w.to(x.dtype) + (x @ a_cat) @ b_cat
+    # decoded STACK_CHUNK_ELEMS weights at a time (one chunk below that)
+    chunk = max(1, STACK_CHUNK_ELEMS // (stack.d_in * stack.d_out))
+    outs = []
+    for e0 in range(0, a_cat.shape[0], chunk):
+        sl = slice(e0, e0 + chunk)
+        w = salr.materialize_base(salr.slice_stack(base, sl))[..., :stack.d_out]
+        xe = x if x.ndim == 2 else x[sl]
+        outs.append(xe @ w.to(x.dtype) + (xe @ a_cat[sl]) @ b_cat[sl])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def _experts_reference(p, tokens: torch.Tensor, top_i: torch.Tensor, w: torch.Tensor,
@@ -349,9 +419,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, route=None,
     """x: (B, S, d) -> x + moe(x).  Every token is routed on its own
     (``route_tokens``); expert compute follows the resolved MoE route,
     reading the base repr of a threaded ``PhaseRoute`` (native
-    otherwise)."""
+    otherwise).  Shared experts follow the phase's linear route."""
     b, s, d = x.shape
-    tokens = apply_rmsnorm(p["norm"], x, cfg.norm_eps).reshape(b * s, d)
+    xn = apply_rmsnorm(p["norm"], x, cfg.norm_eps)
+    tokens = xn.reshape(b * s, d)
     top_i, w, _ = route_tokens(p["router"]["w"], tokens, cfg)
     r = _resolve_moe_route(cfg, route, backend)
     phase = route if isinstance(route, execplan.PhaseRoute) else None
@@ -362,4 +433,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, route=None,
         y = _experts_reference(p, tokens, top_i, w, cfg, base_repr=base_repr)
     else:
         y = _KERNEL_FFNS[r](cfg, p, tokens, top_i, w, base_repr)
-    return x + y.reshape(b, s, d).to(x.dtype)
+    y = y.reshape(b, s, d).to(x.dtype)
+    if "shared" in p:
+        sh = p["shared"]
+        hs = (torch.nn.functional.silu(apply_linear(sh["gate"], xn, phase))
+              * apply_linear(sh["up"], xn, phase))
+        y = y + apply_linear(sh["down"], hs, phase)
+    return x + y

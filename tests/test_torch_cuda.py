@@ -410,3 +410,86 @@ def test_expert_wrappers_launch_and_count(cuda):
         assert ops.LAUNCHES[f"decode_{kind}_spmm"] == before[f"decode_{kind}_spmm"] + 2
     with pytest.raises(TypeError):
         ops.decode_salr_matmul(x.to(torch.bfloat16), re_, stacks["salr"], a, b)
+
+
+def _mla_case(cuda, dtype, b: int, h: int, r: int, rd: int, seed: int):
+    """Paged latent pools (page size 8) with a shuffled page table; entries
+    past each slot's last live page point at the null page or a freed page;
+    per-slot positions cycling through a few lengths up to 159."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ps, max_pages = 8, 20
+    n_pages = b * max_pages + 2
+    ckv = torch.randn((n_pages, ps, r), generator=gen, device=cuda).to(dtype)
+    kr = torch.randn((n_pages, ps, rd), generator=gen, device=cuda).to(dtype)
+    table = (torch.randperm(b * max_pages, generator=gen, device=cuda) + 1).reshape(
+        b, max_pages).to(torch.int32)
+    pos = torch.tensor(([159, 100, 37, 0, 7, 8, 63, 150] * 5)[:b], dtype=torch.int32,
+                       device=cuda)
+    for i in range(b):
+        table[i, int(pos[i]) // ps + 1:] = 0 if i % 2 == 0 else n_pages - 1
+    q_lat = torch.randn((b, h, r), generator=gen, device=cuda) / 4
+    q_rope = torch.randn((b, h, rd), generator=gen, device=cuda) / 4
+    return q_lat, q_rope, ckv, kr, table, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 33])
+@pytest.mark.parametrize("h,r,rd,qk", [(4, 32, 16, 48), (128, 512, 64, 192)],
+                         ids=["smoke", "published"])
+def test_mla_kernel_matches_plain_and_skips_dead_data(cuda, h, r, rd, qk, b, dtype):
+    """The kernel computes in f32 on bf16 or f32 pools, so the f32 limit
+    holds for both; NaN in the null page, a freed page and past each
+    slot's position in its last page leaves the output bitwise equal."""
+    q_lat, q_rope, ckv, kr, table, pos = _mla_case(cuda, dtype, b, h, r, rd, seed=b + h)
+    before = ops.LAUNCHES["paged_mla_attention"]
+    y = ops.paged_mla_attention(q_lat, q_rope, ckv, kr, table, pos, qk_dim=qk)
+    assert ops.LAUNCHES["paged_mla_attention"] == before + 1
+    assert y.shape == (b, h, r) and y.dtype == torch.float32
+    assert _close(y, ref.paged_mla_attention_ref(q_lat, q_rope, ckv, kr, table, pos, qk),
+                  torch.float32)
+    ps = ckv.shape[1]
+    live = torch.zeros(ckv.shape[:2], dtype=torch.bool, device=cuda)
+    for i in range(b):
+        p = torch.arange(int(pos[i]) + 1, device=cuda)
+        live[table[i, p // ps].long(), p % ps] = True
+    ckv[~live] = float("nan")
+    kr[~live] = float("nan")
+    torch.testing.assert_close(
+        ops.paged_mla_attention(q_lat, q_rope, ckv, kr, table, pos, qk_dim=qk), y,
+        rtol=0, atol=0)
+
+
+def test_mla_wrapper_refuses_shapes_the_kernel_does_not_take(cuda):
+    q_lat, q_rope, ckv, kr, table, pos = _mla_case(cuda, torch.float32, 2, 12, 48, 16, 0)
+    with pytest.raises(ValueError, match="kernel takes"):
+        ops.paged_mla_attention(q_lat, q_rope, ckv, kr, table, pos, qk_dim=64)
+    with pytest.raises(TypeError, match="float32"):
+        ops.paged_mla_attention(q_lat.bfloat16(), q_rope, ckv, kr, table, pos, qk_dim=64)
+
+
+@pytest.mark.parametrize("shape", [(7168, 2048), (32, 1024, 512)], ids=["deepseek_expert",
+                                                                         "granite_stack"])
+def test_gesvda_adapter_matches_the_default_driver(cuda, shape):
+    """At one deepseek_v3_671b expert (7168 x 2048) and at granite's gate
+    stack (32 x 1024 x 512) the residual adapter's product A.B under the
+    package's driver (``residual.CUDA_SVD_DRIVER``, gesvda) against
+    PyTorch's default one (gesvdj): within 1e-2 rel-L2 (the residual's
+    singular values crowd around rank 64, so even the exact drivers gesvd
+    and gesvdj differ by 4.4e-3 to 6.6e-3 at deepseek's shapes), and the
+    same share of the residual captured to 1e-4."""
+    from repro_torch.core import residual, salr
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = (torch.randn(shape, generator=gen, device=cuda) / shape[-2] ** 0.5).bfloat16()
+    _, e = salr._tiled_encode(w.reshape(-1, shape[-1]), salr.SALRConfig(dtype="bfloat16"))
+    e = e.reshape(shape)
+    assert residual.CUDA_SVD_DRIVER == "gesvda"
+    products = []
+    for driver in ("gesvdj", None):
+        ad = residual.truncated_svd_adapter(e, 64, dtype=torch.float32, driver=driver)
+        products.append(ad.a @ ad.b)
+    default, package = products
+    assert (package - default).norm() <= 1e-2 * default.norm()
+    e = e.float()
+    captured = [1 - (e - p).norm() / e.norm() for p in (default, package)]
+    assert abs(captured[0] - captured[1]) <= 1e-4

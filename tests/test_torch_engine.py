@@ -87,7 +87,7 @@ def test_parity_report_limits_a_divergence_by_route_noise(smoke):
         toks[1][2] = (toks[1][2] + 1) % cfg.vocab_size
         results = {i: SimpleNamespace(tokens=t) for i, t in enumerate(toks)}
         report = serve.parity_report(cfg, params, prompts, greedy, results, plan)
-    [(rid, step, gap, limit, tie)] = report
+    [(rid, step, gap, limit, tie, _, _)] = report
     assert (rid, step) == (1, 2) and gap >= 0
     assert 0 <= limit < 1e-3 * gap and tie is False
 

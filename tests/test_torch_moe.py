@@ -330,8 +330,10 @@ def test_moe_route_resolution():
     with pytest.raises(ValueError, match="unknown MoE route"):
         tmoe._resolve_moe_route(tcfg, "ragged", None)
     assert "grouped" in tmoe.moe_route_description(tcfg, "grouped")
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        tmoe.init_moe(torch.Generator(), tcfg.with_(n_shared_experts=1), "cpu")
+    # shared experts are ported (deepseek_v3_671b): one dense SwiGLU of
+    # width moe_d_ff x n_shared_experts beside the routed stacks
+    p = tmoe.init_moe(torch.Generator(), tcfg.with_(n_shared_experts=2), "cpu")
+    assert p["shared"]["gate"].d_out == 2 * tcfg.moe_d_ff == p["shared"]["down"].d_in
 
 
 # ------------------------------------------------------------------ plans

@@ -25,6 +25,7 @@ from repro_torch.core.quant import ERROR_BUDGETS
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import model as TM
+from repro_torch.models import moe as tmoe
 from repro_torch.train.step import greedy_generate as tgreedy
 
 BUDGET = ERROR_BUDGETS["method:bitmap"]
@@ -168,6 +169,43 @@ def test_route_line_and_parity_report_on_moe(carried):
     report = serve.parity_report(tcfg, tp, prompts, greedy, wrong, tplan.resolve_plan(tcfg))
     assert [r[:2] for r in report] == [(0, 1), (1, 1)]
     assert all(np.isfinite(r[2]) and r[3] >= 0 for r in report)
+
+
+def test_parity_report_accepts_a_router_near_tie(carried):
+    """A divergence to the token that the step gives with its k-th and
+    (k+1)-th experts swapped at an MoE layer is a near-tie ("router")
+    where that layer's router ties the two, and not with the router as
+    drawn; a divergence to another token is not, tie or no tie.  The
+    router logits come from ``moe.router_logits_tap``: one (N, E) per MoE
+    layer and forward while the tap is open, none after."""
+    _, tcfg, _, tp, _ = carried
+    prompts = serve.request_prompts(tcfg, 1, 12, seed=2)
+    plan = tplan.resolve_plan(tcfg)
+    k = tcfg.experts_per_token
+    pt = torch.from_numpy(prompts)
+    with torch.inference_mode():
+        with tmoe.router_logits_tap() as calls:
+            TM.prefill(tp, tcfg, pt, plan=plan)
+        assert [c.shape for c in calls] == [(12, tcfg.n_experts)] * tcfg.n_layers
+        TM.prefill(tp, tcfg, pt, plan=plan)
+        assert len(calls) == tcfg.n_layers
+        order = calls[0][-1].argsort(descending=True)
+        w = tp["layers"][0]["moe"]["router"]["w"].clone()
+        w[:, order[k]] = w[:, order[k - 1]]
+        layer0 = {**tp["layers"][0], "moe": {**tp["layers"][0]["moe"], "router": {"w": w}}}
+        tied = {**tp, "layers": [layer0, *tp["layers"][1:]]}
+        verdicts = []
+        for params in (tp, tied):
+            greedy, _ = serve.run_batch(tcfg, params, prompts, 2, 1, plan)
+            with tmoe.router_logits_tap(swap_at=0):
+                swapped = int(TM.prefill(params, tcfg, pt, plan=plan)[0][0, -1].argmax())
+            assert swapped != greedy[0][0]
+            for tok in (swapped, (swapped + 1) % tcfg.vocab_size):
+                wrong = {0: type("R", (), {"tokens": [tok, greedy[0][1]]})()}
+                [d] = serve.parity_report(tcfg, params, prompts, greedy, wrong, plan)
+                assert (d.rid, d.step) == (0, 0) and d.gap > d.limit
+                verdicts.append(d.near_tie)
+    assert verdicts == [False, False, "router", False] and d.router_margin == 0
 
 
 def test_serve_cli_runs_the_moe_arch():

@@ -23,7 +23,8 @@ _WRAPPERS = ("salr_matmul", "bitmap_matmul", "paged_gqa_attention", "qsalr_matmu
              "ring_nf4_gqa_attention", "paged_nf4_gqa_attention", "nm_matmul",
              "lora_matmul", "nf4_matmul", "grouped_salr_matmul", "grouped_qsalr_matmul",
              "decode_salr_matmul", "decode_qsalr_matmul", "grouped_dense_matmul",
-             "grouped_nm_matmul", "decode_dense_matmul", "decode_nm_matmul")
+             "grouped_nm_matmul", "decode_dense_matmul", "decode_nm_matmul",
+             "paged_mla_attention")
 
 
 def _fields(obj):
@@ -38,7 +39,7 @@ def _fields(obj):
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copies_equal_reference(smoke):
-    assert tconfigs.PORTED == ["smollm_135m", "granite_moe_1b_a400m"]
+    assert tconfigs.PORTED == ["smollm_135m", "granite_moe_1b_a400m", "deepseek_v3_671b"]
     for name in tconfigs.PORTED:
         t, j = tconfigs.get(name, smoke=smoke), jconfigs.get(name, smoke=smoke)
         assert _fields(t) == _fields(j)
@@ -47,6 +48,24 @@ def test_config_copies_equal_reference(smoke):
         [f.name for f in dataclasses.fields(jconfigs.ArchConfig)]
     assert {k: _fields(v) for k, v in tconfigs.SHAPES.items()} == \
         {k: _fields(v) for k, v in jconfigs.SHAPES.items()}
+
+
+def test_mla_config_copy_equals_reference():
+    """MLAConfig field for field (names, order, defaults), and deepseek's
+    published and smoke MLA widths."""
+    from repro.configs.base import MLAConfig as JMLA
+    assert [(f.name, f.default) for f in dataclasses.fields(tconfigs.MLAConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(JMLA)]
+    for smoke in (False, True):
+        t, j = tconfigs.get("deepseek_v3_671b", smoke=smoke), jconfigs.get(
+            "deepseek_v3_671b", smoke=smoke)
+        assert isinstance(t.mla, tconfigs.MLAConfig)
+        assert _fields(t.mla) == _fields(j.mla)
+        assert (t.first_dense_layers, t.n_shared_experts) == (j.first_dense_layers,
+                                                              j.n_shared_experts)
+    assert _fields(tconfigs.get("deepseek_v3_671b").mla) == {
+        "q_lora_rank": 1536, "kv_lora_rank": 512, "qk_nope_head_dim": 128,
+        "qk_rope_head_dim": 64, "v_head_dim": 128}
 
 
 def test_error_budgets_equal_reference():
