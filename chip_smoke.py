@@ -37,10 +37,14 @@ Phases (any failure exits non-zero before the result line):
    sqrt(R + rd), the live range one position short).  ``nm_spmm``,
    ``fused_lora`` and ``nf4_spmm`` at the wo
    and down shapes (K = 576 / 1536, N = 576, R = 128) at M = 4, 8 and
-   1024, and ``nf4_spmm`` at the smoke width's padded shape (96 columns
-   -> 128); the bf16 limit must reject one planted fault each: values
-   read at the inclusive popcount, u left unrounded, the dequantized
-   weight left unrounded.  The eight expert-stack kernels, grouped and
+   1024, ``nm_spmm`` at granite_moe_1b_a400m's wo (K = N = 1024) at M = 8
+   and 1024, and ``nf4_spmm`` at the smoke width's padded shape (96
+   columns -> 128); the bf16 limit must reject one planted fault each:
+   values read at the inclusive popcount, u left unrounded, the
+   dequantized weight left unrounded.  At down, ``nm_spmm``'s and
+   ``nf4_spmm``'s rows computed at M = 1, 4, 8, 33 and 100 must equal
+   the same rows at M = 1024 bit for bit (their split-K kernels' two
+   dispatches, slices and rows), and two calls must give equal bits.  The eight expert-stack kernels, grouped and
    decode grid over a tiled bitmap (``grouped_salr_spmm``,
    ``decode_salr_spmm``), its NF4 twin (``*_qsalr_spmm``), a masked
    dense stack (``*_dense_spmm``) and a 2:4 stack (``*_nm_spmm``), at
@@ -682,17 +686,24 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
     down (K = 1536), N = 576, R = 128, at the decode batches M = 4
     (engine slots) and 8 (greedy_generate) and at prefill size M = 1024
     (which the main path gives nm_spmm and fused_lora; nf4_spmm only
-    decodes, and is held over many row blocks there too), and nf4_spmm
-    at the smoke width's padded shape (96 columns -> 128).  The
+    decodes, and is held at the split-K kernels' rows dispatch there
+    too), nm_spmm at granite's wo (K = N = 1024) at M = 8 and 1024, and
+    nf4_spmm at the smoke width's padded shape (96 columns -> 128).  The
     bf16 limit must reject one planted fault per kernel: nm_spmm's values
     read at the inclusive popcount, fused_lora's u left unrounded,
     nf4_spmm's dequantized weight left unrounded (f32 into the
-    product)."""
+    product).  At down, nm_spmm's and nf4_spmm's rows must be bitwise
+    independent of M (1, 4, 8, 33, 100 against 1024) and two calls
+    bitwise equal (``_rows_bitwise``)."""
     from repro_torch.core import bitmap as bm
     from repro_torch.core.quant import nf4_dequant_2d
     from repro_torch.kernels import ops, ref
 
-    shapes = {"wo": (576, 576), "down": (1536, 576), "wo (smoke width, padded)": (96, 96)}
+    shapes = {"wo": (576, 576), "down": (1536, 576), "wo (smoke width, padded)": (96, 96),
+              "granite wo": (1024, 1024)}
+    # the shapes that only some kernels take here, and at which M
+    only = {"wo (smoke width, padded)": ("nf4_spmm",), "granite wo": ("nm_spmm",)}
+    rows_at = {"granite wo": (8, 1024)}
     names = ("nm_spmm", "fused_lora", "nf4_spmm")
     summary = {name: {"max_abs_err": 0.0} for name in names}
     for dtype_name in ("bfloat16", "float32"):
@@ -708,7 +719,9 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
             w_nf4_dt = w_nf4.to(dt)
             n_pad = w_nf4.shape[1]
             nnz = int(w_nm.ne(0).sum())
-            for m in (4, 8, 1024):
+            splitk = {"nm_spmm": lambda xs: ops.nm_matmul(xs, nmw),
+                      "nf4_spmm": lambda xs: ops.nf4_matmul(xs, codes, scales)}
+            for m in rows_at.get(lname, (4, 8, 1024)):
                 x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
                 es = x.element_size()
                 cases = {   # kernel, plain, library call, planted fault, bytes, flops
@@ -738,7 +751,7 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
                 }
                 for name, (kern, plain, lib, (fault_key, fault_fn), nbytes, flops) in \
                         cases.items():
-                    if lname.startswith("wo (smoke") and name != "nf4_spmm":
+                    if name not in only.get(lname, names):
                         continue
                     y, y_ref = kern(), plain()
                     torch.cuda.synchronize()
@@ -747,6 +760,8 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
                     if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
                         fail(f"{name} {dtype_name} {lname} M={m}: rel-L2 {err:.3e} "
                              f"> {TOL[dtype_name]:.0e}")
+                    if lname == "down" and m == 1024 and name in splitk:
+                        _rows_bitwise(torch, f"{name} {dtype_name} {lname}", splitk[name], x, y)
                     s = summary[name]
                     s["max_abs_err"] = max(s["max_abs_err"], abs_err)
                     bound, by = _bound(nbytes, flops, dtype_name)
@@ -772,6 +787,26 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
                     rows.append(row)
                     print(_row_line(row))
     return summary
+
+
+def _same_bits(torch, a, b) -> bool:
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.shape == b.shape and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def _rows_bitwise(torch, what: str, fn, x, y) -> None:
+    """A row's bits do not depend on M: fn's first 1, 4, 8, 33 and 100 rows
+    computed alone equal the same rows of ``y = fn(x)`` at x's M (1024: the
+    split-K kernels' rows dispatch, the smaller M their slices dispatch),
+    and a second call on x gives y's bits."""
+    for mm in (1, 4, 8, 33, 100):
+        if not _same_bits(torch, fn(x[:mm]), y[:mm]):
+            fail(f"{what}: rows computed at M={mm} differ from the same rows at "
+                 f"M={x.shape[0]}")
+    if not _same_bits(torch, fn(x), y):
+        fail(f"{what}: two calls on the same inputs differ")
+    print(f"phase 2: {what}: rows at M = 1, 4, 8, 33, 100 bitwise equal to the same rows "
+          f"at M = {x.shape[0]}; two calls bitwise equal")
 
 
 # granite_moe_1b_a400m's expert stacks: (K, N) of gate/up and of down
@@ -2086,7 +2121,10 @@ def tick_profile(torch, eng, prompts) -> dict:
     busy_ms = sum(by_name.values()) / n / 1e3
     # salr_spmm.cu's two ops share kernel names; the NF4 loader in the
     # template arguments marks qsalr_spmm's, so it is matched first (after
-    # the expert kernels, whose row map names them)
+    # the expert kernels, whose row map names them).  The nm_spmm_kernel
+    # and nf4_spmm_kernel prefixes cover each op's split-K kernels
+    # (*_splitk, *_rows), its own reduce pass (*_reduce) and its f32 column
+    # GEMM
     families = {"grouped expert kernels": ("TileMap",),
                 "decode-grid expert kernels": ("RowMap",),
                 "qsalr_spmm": ("NF4Values",),

@@ -6,13 +6,17 @@
 Imports ``repro_torch`` and ``chip_smoke.Timer`` from the checkout at
 TREE (building its kernels there), times ``salr_spmm``, ``qsalr_spmm``
 and ``bitmap_spmm`` in bf16 at smollm_135m's four projection shapes at
-M = 4 and 8 (profiler device time, L2 flushed, median of 3 traces), and
-prints one JSON line tagged LABEL.  To compare two versions, unpack each
+M = 4 and 8, ``nm_spmm`` and ``nf4_spmm`` at smollm_135m's wo and down
+at M = 4, 8 and 1024 and ``nm_spmm`` at granite_moe_1b_a400m's wo at M
+= 8 and 1024 (profiler device time, L2 flushed, median of 3 traces),
+and prints one JSON line tagged LABEL, with each ``nm_spmm`` /
+``nf4_spmm`` call's device time also split by the kernels it launches.  To compare two versions, unpack each
 into its own directory (``git archive``) and alternate their runs, one
 process each, on one GPU in one session.
 """
 import json
 import math
+import re
 import sys
 from pathlib import Path
 
@@ -29,6 +33,25 @@ from repro_torch.kernels import build, ops  # noqa: E402
 assert Path(ops.__file__).resolve().is_relative_to(root)
 build.build_all()
 timer = cs.Timer(torch)
+
+
+def ms_by_kernel(fn) -> dict:
+    """fn's device ms per call by kernel name (one trace, L2 flushed)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(timer.iters):
+            timer.flush_buf.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    cs.device_us(torch, prof, by_name)
+    return {(re.search(r"\w*_kernel\w*", k) or [k])[0]: us / timer.iters / 1e3
+            for k, us in by_name.items() if timer.FLUSH not in k}
+
+
 gen = torch.Generator(device="cuda").manual_seed(0)
 out = {}
 with torch.inference_mode():
@@ -46,4 +69,17 @@ with torch.inference_mode():
                 "salr": timer.ms(lambda: ops.salr_matmul(x, tbw, a, b)),
                 "qsalr": timer.ms(lambda: ops.qsalr_matmul(x, q, a, b)),
                 "bitmap": timer.ms(lambda: ops.bitmap_matmul(x, tbw))}
+    for lname, (k, n), kernels, rows in (("wo", (576, 576), ("nm", "nf4"), (4, 8, 1024)),
+                                         ("down", (1536, 576), ("nm", "nf4"), (4, 8, 1024)),
+                                         ("granite wo", (1024, 1024), ("nm",), (8, 1024))):
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        nmw, _ = bm.nm_encode(w.bfloat16())
+        codes, scales = ops.nf4_encode_2d(w)
+        for m in rows:
+            x = (torch.randn((m, k), generator=gen, device="cuda") / 4).bfloat16()
+            fns = {"nm": lambda: ops.nm_matmul(x, nmw),
+                   "nf4": lambda: ops.nf4_matmul(x, codes, scales)}
+            out[f"{lname} M={m}"] = {kk: timer.ms(fns[kk]) for kk in kernels}
+            for kk in kernels:
+                out[f"{lname} M={m} {kk} by kernel"] = ms_by_kernel(fns[kk])
 print(json.dumps({"tree": sys.argv[2], **out}))

@@ -37,9 +37,9 @@ KERNELS = {
     "ring_nf4_gqa_attention": ("quant_attention.cu", [_P] * 7 + [_I] * 7 + [_P]),
     "paged_quant_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
     "paged_nf4_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
-    "nm_spmm": ("nm_spmm.cu", [_P] * 4 + [_I] * 7 + [_P]),
+    "nm_spmm": ("nm_spmm.cu", [_P] * 5 + [_I] * 9 + [_P]),
     "fused_lora": ("fused_lora.cu", [_P] * 4 + [_I] * 6 + [_P]),
-    "nf4_spmm": ("nf4_spmm.cu", [_P] * 4 + [_I] * 5 + [_P]),
+    "nf4_spmm": ("nf4_spmm.cu", [_P] * 5 + [_I] * 7 + [_P]),
     "grouped_salr_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 10 + [_P]),
     "grouped_qsalr_spmm": ("grouped_spmm.cu", [_P] * 9 + [_I] * 10 + [_P]),
     "decode_salr_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 9 + [_P]),

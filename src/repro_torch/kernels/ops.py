@@ -177,6 +177,49 @@ def salr_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight,
     return y.reshape(*lead, tbw.cols)
 
 
+# The bf16 nm_spmm and nf4_spmm kernels (csrc/splitk_gemm.cuh): rows of x
+# per block, columns per tile, K rows per pipeline step (the unit of a
+# slice), and the blocks of one wave on the H100 (one per SM)
+SPLITK_BM, SPLITK_BN, SPLITK_BK = 64, 64, 32
+SPLITK_WAVE = 132
+
+
+def splitk_plan(k: int, n: int) -> tuple:
+    """(slices, slice_k) of the split-K kernels for a (K, N) weight: K cut
+    into ``slices`` slices of ``slice_k`` rows (a multiple of SPLITK_BK,
+    the last ending at K), enough that the (column tile x slice) blocks
+    fill a wave at decode.  A function of (K, N) alone: a row's products
+    meet the same slices, summed in the same order, at every M."""
+    steps = max(1, -(-k // SPLITK_BK))
+    per = max(1, steps // -(-SPLITK_WAVE // -(-n // SPLITK_BN)))
+    return -(-steps // per), per * SPLITK_BK
+
+
+def _splitk_args(x2: torch.Tensor, k: int, n: int) -> tuple:
+    """(workspace, slices, slice_k) of a bf16 split-K launch.  While the row
+    tiles alone do not fill a wave, a (slices, M, N) f32 workspace: a block
+    per (column tile, row tile, slice) writes its partial there and a
+    reduce pass sums them in slice order.  Otherwise None (a null pointer):
+    a block per (column tile, row tile) walks every slice in order.  Both
+    give the same bits."""
+    slices, slice_k = splitk_plan(k, n)
+    m = x2.shape[0]
+    if -(-m // SPLITK_BM) * -(-n // SPLITK_BN) >= SPLITK_WAVE:
+        return None, slices, slice_k
+    ws = torch.empty((slices, m, n), dtype=torch.float32, device=x2.device)
+    return ws, slices, slice_k
+
+
+def _launch_splitk(name: str, x2: torch.Tensor, y: torch.Tensor, weights: tuple, k: int,
+                   n: int, shape_args: tuple, code: int) -> None:
+    """Launch nm_spmm / nf4_spmm: bf16 with its split plan and workspace,
+    f32 (the column GEMM) with none."""
+    ws, slices, slice_k = (_splitk_args(x2, k, n) if x2.dtype == torch.bfloat16
+                           else (None, 0, 0))
+    _launch(name, x2.device, x2.data_ptr(), *(t.data_ptr() for t in weights), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), *shape_args, slices, slice_k, code)
+
+
 def nm_matmul(x: torch.Tensor, nmw: bm.NMWeight) -> torch.Tensor:
     """y = x @ W_hat with W_hat in N:M form, decoded inside the GEMM.
     x: (..., K); returns (..., nmw.cols)."""
@@ -203,9 +246,8 @@ def nm_matmul(x: torch.Tensor, nmw: bm.NMWeight) -> torch.Tensor:
         m = x2.shape[0]
         y = torch.empty((m, nmw.cols), dtype=x2.dtype, device=x2.device)
         if m:
-            _launch(name, x2.device, x2.data_ptr(), nmw.group_bits.data_ptr(),
-                    nmw.values.data_ptr(), y.data_ptr(), m, k, nmw.cols, nmw.n, nmw.m,
-                    code)
+            _launch_splitk(name, x2, y, (nmw.group_bits, nmw.values), k, nmw.cols,
+                           (m, k, nmw.cols, nmw.n, nmw.m), code)
     return y.reshape(*lead, nmw.cols)
 
 
@@ -276,8 +318,7 @@ def nf4_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> to
         m = x2.shape[0]
         y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
         if m:
-            _launch(name, x2.device, x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-                    y.data_ptr(), m, k, n, code)
+            _launch_splitk(name, x2, y, (codes, scales), k, n, (m, k, n), code)
     return y.reshape(*lead, n)
 
 

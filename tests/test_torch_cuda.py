@@ -172,18 +172,30 @@ def _rows_independent(fn, x, y) -> None:
     torch.testing.assert_close(fn(x[-1:]), y[-1:], rtol=0, atol=0)
 
 
+# nm_spmm / nf4_spmm: M = 1024 takes the bf16 kernels' rows dispatch at
+# N = 576 and 1024, the smaller M their slices dispatch (ops._splitk_args)
+_SPLITK_ROWS = _ROWS + (1024,)
+
+
+def _deterministic(fn, x, y) -> None:
+    """Bitwise: a second call on the same inputs gives the same output."""
+    torch.testing.assert_close(fn(x), y, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,n,nm", [(576, 576, (2, 4)), (100, 200, (2, 4)), (64, 136, (1, 4)),
-                                    (48, 128, (4, 8))])
+                                    (48, 128, (4, 8)), (1024, 1024, (2, 4))])
 def test_nm_kernel_matches_plain_and_rows_are_independent(cuda, k, n, nm, dtype):
+    """(1024, 1024): granite's wo."""
     gen = torch.Generator(device=cuda).manual_seed(k + n)
     w = (torch.randn((k, n), generator=gen, device=cuda) / 10).to(dtype)
     nmw, _ = tbm.nm_encode(w, *nm)
-    for m in _ROWS:
+    for m in _SPLITK_ROWS:
         x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
         y = ops.nm_matmul(x, nmw)
         assert _close(y, ref.nm_spmm_ref(x, nmw), dtype)
         _rows_independent(lambda xs: ops.nm_matmul(xs, nmw), x, y)
+        _deterministic(lambda xs: ops.nm_matmul(xs, nmw), x, y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -215,18 +227,48 @@ def test_nf4_kernel_matches_plain_and_rows_are_independent(cuda, k, n, dtype):
     gen = torch.Generator(device=cuda).manual_seed(k * n)
     w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
     codes, scales = ops.nf4_encode_2d(torch.nn.functional.pad(w, (0, (-n) % 64)))
-    for m in _ROWS:
+    for m in _SPLITK_ROWS:
         x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
         y = ops.nf4_matmul(x, codes, scales)
         y_ref = ref.nf4_spmm_ref(x, codes, scales)
         assert _close(y, y_ref, dtype)
         assert not y[:, n:].any()                 # padded columns quantize to zeros
         _rows_independent(lambda xs: ops.nf4_matmul(xs, codes, scales), x, y)
+        _deterministic(lambda xs: ops.nf4_matmul(xs, codes, scales), x, y)
         if dtype == torch.bfloat16 and m == 100:
             # the limit rejects the dequantized weight left unrounded
             from repro_torch.core.quant import nf4_dequant_2d
             unrounded = (x.float() @ nf4_dequant_2d(codes, scales)).to(dtype)
             assert not _close(unrounded, y_ref, dtype)
+
+
+@pytest.mark.parametrize("k,n", [(100, 200), (1536, 576)])
+def test_splitk_dispatches_give_the_same_bits(cuda, k, n, monkeypatch):
+    """nm_spmm and nf4_spmm in bf16 with every call forced through the rows
+    dispatch, then through the slices dispatch: bitwise equal at every M,
+    ragged K and N included."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    nmw, _ = tbm.nm_encode(w.to(torch.bfloat16))
+    codes, scales = ops.nf4_encode_2d(torch.nn.functional.pad(w, (0, (-n) % 64)))
+    plan = ops._splitk_args
+
+    def forced(walk_rows):
+        def args(x2, k, n):
+            _, slices, slice_k = plan(x2, k, n)
+            ws = None if walk_rows else torch.empty((slices, x2.shape[0], n),
+                                                    dtype=torch.float32, device=x2.device)
+            return ws, slices, slice_k
+        return args
+
+    for m in _SPLITK_ROWS:
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        out = []
+        for walk_rows in (True, False):
+            monkeypatch.setattr(ops, "_splitk_args", forced(walk_rows))
+            out.append((ops.nm_matmul(x, nmw), ops.nf4_matmul(x, codes, scales)))
+        for a, b in zip(*out):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_wrappers_launch_and_count(cuda):
