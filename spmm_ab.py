@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Device time per call of the SpMM kernels of one checkout, for A/B runs.
 
-    python3 spmm_ab.py TREE LABEL
+    python3 spmm_ab.py TREE LABEL [--plan-sms N] [--dispatch rows|slices]
 
 Imports ``repro_torch`` and ``chip_smoke.Timer`` from the checkout at
 TREE (building its kernels there), times ``salr_spmm``, ``qsalr_spmm``
 and ``bitmap_spmm`` in bf16 at smollm_135m's four projection shapes at
 M = 4 and 8, ``nm_spmm`` and ``nf4_spmm`` at smollm_135m's wo and down
-at M = 4, 8 and 1024 and ``nm_spmm`` at granite_moe_1b_a400m's wo at M
-= 8 and 1024 (profiler device time, L2 flushed, median of 3 traces),
-and prints one JSON line tagged LABEL, with each ``nm_spmm`` /
-``nf4_spmm`` call's device time also split by the kernels it launches.  To compare two versions, unpack each
-into its own directory (``git archive``) and alternate their runs, one
-process each, on one GPU in one session.
+at M = 4, 8 and 256 to 1024 and ``nm_spmm`` at granite_moe_1b_a400m's
+wo at M = 8 and 256 to 1024 (profiler device time, L2 flushed, median of
+3 traces), and prints one JSON line tagged LABEL, with each ``nm_spmm``
+/ ``nf4_spmm`` call's device time also split by the kernels it
+launches.  ``--plan-sms N`` cuts K for the split-K kernels as on a card
+of N SMs (``ops.splitk_plan``) instead of this card's count;
+``--dispatch`` takes their rows or their slices dispatch at every M
+instead of the one ``ops._splitk_args`` picks.  To compare two
+versions, unpack each into its own directory (``git archive``) and
+alternate their runs, one process each, back to back on one GPU.
 """
 import json
 import math
@@ -31,6 +35,20 @@ from repro_torch.core import salr  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 
 assert Path(ops.__file__).resolve().is_relative_to(root)
+if "--plan-sms" in sys.argv:
+    plan_sms = int(sys.argv[sys.argv.index("--plan-sms") + 1])
+    ops._sm_count = lambda device: plan_sms
+if "--dispatch" in sys.argv:
+    walk_rows = sys.argv[sys.argv.index("--dispatch") + 1] == "rows"
+    picked = ops._splitk_args
+
+    def forced(x2, k, n):
+        ws, slices, slice_k = picked(x2, k, n)
+        if walk_rows:
+            return None, slices, slice_k
+        return (torch.empty((slices, x2.shape[0], n), dtype=torch.float32, device=x2.device),
+                slices, slice_k)
+    ops._splitk_args = forced
 build.build_all()
 timer = cs.Timer(torch)
 
@@ -69,9 +87,12 @@ with torch.inference_mode():
                 "salr": timer.ms(lambda: ops.salr_matmul(x, tbw, a, b)),
                 "qsalr": timer.ms(lambda: ops.qsalr_matmul(x, q, a, b)),
                 "bitmap": timer.ms(lambda: ops.bitmap_matmul(x, tbw))}
-    for lname, (k, n), kernels, rows in (("wo", (576, 576), ("nm", "nf4"), (4, 8, 1024)),
-                                         ("down", (1536, 576), ("nm", "nf4"), (4, 8, 1024)),
-                                         ("granite wo", (1024, 1024), ("nm",), (8, 1024))):
+    # up to 1024 around the M where the row tiles x column tiles reach 132
+    # (960 at N = 576, 576 at N = 1024)
+    big = (256, 384, 512, 576, 640, 768, 896, 960, 1024)
+    for lname, (k, n), kernels, rows in (("wo", (576, 576), ("nm", "nf4"), (4, 8, *big)),
+                                         ("down", (1536, 576), ("nm", "nf4"), (4, 8, *big)),
+                                         ("granite wo", (1024, 1024), ("nm",), (8, *big))):
         w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
         nmw, _ = bm.nm_encode(w.bfloat16())
         codes, scales = ops.nf4_encode_2d(w)

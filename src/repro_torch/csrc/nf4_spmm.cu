@@ -20,22 +20,24 @@
 // operations bind (0.0018 ms at 989 TFLOP/s bf16).
 //
 // Design, bf16 (splitk_gemm.cuh): K cut into slices, chosen by the wrapper
-// from (K, N) so that the (64-column tile x slice) blocks fill the card at
-// decode (down: 9 x 16 = 144 blocks); a block copies its tile's 32 code
-// bytes a row with 16-byte cp.async (N/2 = 288 bytes a row at smollm) and
-// its scale with a 4-byte one through a 4-stage ring, decodes 32 rows at a
-// time into a bf16 (32, 64) tile in shared memory (level x scale in f32,
-// rounded to bf16, through NF4Tile) and runs mma.sync m16n8k16 over it.
-// Small M: a block per (column tile, row tile, slice) writes f32 partials,
-// nf4_spmm_kernel_reduce sums them in slice order; large M: a block per
-// (column tile, row tile) walks the slices in order
+// from (K, N) and the SM count so that the (64-column tile x slice) blocks
+// fill the card at decode (down: 9 x 16 = 144 blocks); a block copies its
+// tile's 32 code bytes a row with 16-byte cp.async (N/2 = 288 bytes a row
+// at smollm) and its scale with a 4-byte one through a 4-stage ring,
+// decodes 32 rows at a time into a bf16 (32, 64) tile in shared memory
+// (level x scale in f32, rounded to bf16, through NF4Tile) and runs
+// mma.sync m16n8k16 over it.  Small M: a block per (column tile, row tile,
+// slice) writes f32 partials, nf4_spmm_kernel_reduce sums them in slice
+// order; larger M, where those partials would cost more than a longer
+// walk: a block per (column tile, row tile) walks the slices in order
 // (nf4_spmm_kernel_rows); the same bits either way.  It replaces a column
 // GEMM, one thread per column walking all of K (5 blocks at decode),
 // which took 0.2030 ms at down M = 4 and 0.2767 ms at M = 1024 (NVIDIA
 // H100 80GB HBM3, 700.00 W; chip_smoke.py phase 2); this design takes
-// 0.0060 and 0.0452 ms there (PERF.md).  f32 keeps the column GEMM of
-// column_gemm.cuh: f32 is held at 1e-5, which TF32 tensor cores cannot
-// meet.
+// 0.0060 and 0.0452 ms there (PERF.md), the FAST kernels (x and the codes
+// 16-byte aligned: the main path) half the time of the generic ones.  f32
+// keeps the column GEMM of column_gemm.cuh: f32 is held at 1e-5, which
+// TF32 tensor cores cannot meet.
 #include "column_gemm.cuh"
 #include "splitk_gemm.cuh"
 

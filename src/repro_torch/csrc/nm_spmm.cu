@@ -20,23 +20,26 @@
 // bind about equally (~0.002 ms).
 //
 // Design, bf16 (splitk_gemm.cuh): K cut into slices, chosen by the wrapper
-// from (K, N) so that the (64-column tile x slice) blocks fill the card at
-// decode (down: 9 x 16 = 144 blocks); a block copies its tile's group bytes
-// and values with cp.async (16 bytes where the row strides allow: N/m and
-// 2nN/m bytes, 144 and 576 at smollm) through a 4-stage ring, decodes 32
-// rows at a time into a bf16 (32, 64) tile in shared memory (the set bit's
-// slot a __popc of the bits below it, clamped to n - 1, through NMTile)
-// and runs mma.sync m16n8k16 over it.  Small M: a block per (column tile,
-// row tile, slice) writes f32 partials, nm_spmm_kernel_reduce sums them in
-// slice order; large M: a block per (column tile, row tile) walks the
-// slices in order (nm_spmm_kernel_rows); the same bits either way.  It
-// replaces a column GEMM, one thread per column walking all of K (5
-// blocks at decode), which took 0.2291 ms at down M = 4 and 0.2583 ms at
-// M = 1024 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 2);
-// this design takes 0.0059 and 0.0451 ms there (PERF.md).  Hopper's
-// sparse mma.sp would want the 2:4 pattern along K, and this layout
-// groups along N (ROADMAP).  f32 keeps the column GEMM of column_gemm.cuh:
-// f32 is held at 1e-5, which TF32 tensor cores cannot meet.
+// from (K, N) and the SM count so that the (64-column tile x slice) blocks
+// fill the card at decode (down: 9 x 16 = 144 blocks); a block copies its
+// tile's group bytes and values with cp.async (16 bytes where the row
+// strides allow: N/m and 2nN/m bytes, 144 and 576 at smollm) through a
+// 4-stage ring, decodes 32 rows at a time into a bf16 (32, 64) tile in
+// shared memory (the set bit's slot a __popc of the bits below it, clamped
+// to n - 1, through NMTile) and runs mma.sync m16n8k16 over it.  Small M:
+// a block per (column tile, row tile, slice) writes f32 partials,
+// nm_spmm_kernel_reduce sums them in slice order; larger M, where those
+// partials would cost more than a longer walk: a block per (column tile,
+// row tile) walks the slices in order (nm_spmm_kernel_rows); the same bits
+// either way.  It replaces a column GEMM, one thread per column walking
+// all of K (5 blocks at decode), which took 0.2291 ms at down M = 4 and
+// 0.2583 ms at M = 1024 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+// phase 2); this design takes 0.0059 and 0.0451 ms there (PERF.md).  The
+// FAST kernels (m = 4, 16-byte aligned: the main path) take half the time
+// of the generic ones there.  Hopper's sparse mma.sp would want the 2:4
+// pattern along K, and this layout groups along N (ROADMAP).  f32 keeps
+// the column GEMM of column_gemm.cuh: f32 is held at 1e-5, which TF32
+// tensor cores cannot meet.
 #include "column_gemm.cuh"
 #include "splitk_gemm.cuh"
 

@@ -5,27 +5,28 @@
 // K cut into slices that run on separate blocks.
 //
 // Split plan: K is cut into S slices of slice_k rows (a multiple of BK; the
-// last ends at K), chosen by the wrapper from (K, N) alone
-// (ops.splitk_plan).  A block owns one column tile of at most BN columns
-// and BM rows of x (rows past M zero), 8 warps of 16 rows x 32 columns, and
-// walks its K range in steps of BK rows through a ring of STAGES
-// shared-memory stages filled by cp.async, three steps ahead.  The weight
-// loader (a Tile: NMTile, NF4Tile) copies a step's compressed rows and
-// decodes them into a bf16 (BK, BN) tile, zero past K and past the tile's
-// columns; each warp then multiplies its rows by it, k16 step by k16 step
-// (fragments via ldmatrix).  FAST kernels (the main path's shapes: every
+// last ends at K), chosen by the wrapper from (K, N) and the card's SM
+// count, never from M (ops.splitk_plan).  A block owns one column tile of at
+// most BN columns and BM rows of x (rows past M zero), 8 warps of 16 rows x
+// 32 columns, and walks its K range in steps of BK rows through a ring of
+// STAGES shared-memory stages filled by cp.async, three steps ahead.  The
+// weight loader (a Tile: NMTile, NF4Tile) copies a step's compressed rows
+// and decodes them into a bf16 (BK, BN) tile, zero past K and past the
+// tile's columns; each warp then multiplies its rows by it, k16 step by k16
+// step (fragments via ldmatrix).  FAST kernels (the main path's shapes: every
 // address and stride 16-byte aligned) give each thread one fixed 16-byte
 // chunk per stream and step; the others copy with the widest width the
-// addresses allow.  A slice's partial starts from a zeroed accumulator,
-// and the output is p0 + p1 + ... + p(S-1) in f32, in that order, rounded
-// once to bf16.  Two dispatches give the same bits:
+// addresses allow.  A slice's partial starts from a zeroed accumulator, and
+// the output is p0 + p1 + ... + p(S-1) in f32, in that order, rounded once
+// to bf16.  Two dispatches give the same bits:
 //   - slices (slices_block): one block per (column tile, row tile, slice)
 //     writes its f32 partial to a workspace (S, M, N); a reduce pass
 //     (reduce_slices) sums them in order.  For small M: the column tiles x
 //     slices fill the card.
 //   - rows (rows_block): one block per (column tile, row tile) walks every
 //     slice in order, each into a fresh accumulator added to a running
-//     total.  For large M, where the row tiles alone fill the card.
+//     total.  For larger M, where the partials' round trip through memory
+//     would cost more than the longer walk (ops._splitk_args).
 // No atomics take part.  mma.sync keeps rows apart, and a row meets the same
 // k16 steps, slices and sum order in both dispatches and at every M, so its
 // bits do not depend on the batch it came in (the engine decodes at M =
@@ -36,14 +37,22 @@
 
 #include "common.cuh"
 
+#if !defined(SALR_SPLITK_BN) || !defined(SALR_SPLITK_BK)
+#error "build with -DSALR_SPLITK_BN and -DSALR_SPLITK_BK (kernels/build.py sets them)"
+#endif
+
 namespace salr {
 namespace splitk {
 
 constexpr int THREADS = 256;  // 8 warps: warp w owns rows 16 (w % 4), columns 32 (w / 4)
-constexpr int BM = 64;        // rows of x per block
-constexpr int BN = 64;        // columns per tile
-constexpr int WN = 32;        // columns per warp: 4 mma n-tiles
-constexpr int BK = 32;        // K rows per stage: two mma k16 steps
+// The tile's columns and K rows per stage come from the build
+// (build.SPLITK_BN / SPLITK_BK), whose values the wrapper's plan reads too
+constexpr int BM = 64;              // rows of x per block
+constexpr int BN = SALR_SPLITK_BN;  // columns per tile
+constexpr int WN = 32;              // columns per warp: 4 mma n-tiles
+constexpr int BK = SALR_SPLITK_BK;  // K rows per stage
+static_assert(BM == 64 && BN == 2 * WN && BK % 16 == 0,
+              "8 warps of 16 rows x WN columns; whole k16 steps");
 constexpr int STAGES = 4;     // cp.async ring depth: three steps in flight
 constexpr int MIN_BLOCKS = 2; // blocks resident per SM (__launch_bounds__): <= 128 registers
 constexpr int XLD = BK + 8;   // x row pitch (bf16): ldmatrix rows on distinct banks

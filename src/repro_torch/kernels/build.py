@@ -23,8 +23,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# The split-K kernels' tile (csrc/splitk_gemm.cuh): columns per block and
+# K rows per pipeline step, the unit of a slice.  The kernels are compiled
+# with them; ops.splitk_plan and ops._splitk_args cut K by them.
+SPLITK_BN, SPLITK_BK = 64, 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DSALR_SPLITK_BN={SPLITK_BN}", f"-DSALR_SPLITK_BK={SPLITK_BK}")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> (source, C argument types); the entry has the kernel's name

@@ -13,6 +13,8 @@ kernels; ``reset_launches`` zeroes it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import bitmap as bm
@@ -177,34 +179,42 @@ def salr_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight,
     return y.reshape(*lead, tbw.cols)
 
 
-# The bf16 nm_spmm and nf4_spmm kernels (csrc/splitk_gemm.cuh): rows of x
-# per block, columns per tile, K rows per pipeline step (the unit of a
-# slice), and the blocks of one wave on the H100 (one per SM)
-SPLITK_BM, SPLITK_BN, SPLITK_BK = 64, 64, 32
-SPLITK_WAVE = 132
+def splitk_plan(k: int, n: int, sms: int) -> tuple:
+    """(slices, slice_k) of the bf16 nm_spmm and nf4_spmm kernels
+    (csrc/splitk_gemm.cuh) for a (K, N) weight on a card of ``sms`` SMs: K
+    cut into ``slices`` slices of ``slice_k`` rows (whole pipeline steps of
+    build.SPLITK_BK rows, the last ending at K), enough that the (column
+    tile x slice) blocks fill a wave of one block per SM at decode.  Never
+    a function of M: a row's products meet the same slices, summed in the
+    same order, at every M."""
+    steps = max(1, -(-k // build.SPLITK_BK))
+    per = max(1, steps // -(-sms // -(-n // build.SPLITK_BN)))
+    return -(-steps // per), per * build.SPLITK_BK
 
 
-def splitk_plan(k: int, n: int) -> tuple:
-    """(slices, slice_k) of the split-K kernels for a (K, N) weight: K cut
-    into ``slices`` slices of ``slice_k`` rows (a multiple of SPLITK_BK,
-    the last ending at K), enough that the (column tile x slice) blocks
-    fill a wave at decode.  A function of (K, N) alone: a row's products
-    meet the same slices, summed in the same order, at every M."""
-    steps = max(1, -(-k // SPLITK_BK))
-    per = max(1, steps // -(-SPLITK_WAVE // -(-n // SPLITK_BN)))
-    return -(-steps // per), per * SPLITK_BK
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The rows dispatch once the slices' f32 partials would exceed this many
+# bytes per pipeline step of K: on an H100 a block's step takes about 0.55
+# us, and partials cost about 1.4 us per MB written and summed (the
+# spmm_ab.py sweep of M, PERF.md)
+SPLITK_ROWS_BYTES_PER_STEP = 400_000
 
 
 def _splitk_args(x2: torch.Tensor, k: int, n: int) -> tuple:
-    """(workspace, slices, slice_k) of a bf16 split-K launch.  While the row
-    tiles alone do not fill a wave, a (slices, M, N) f32 workspace: a block
-    per (column tile, row tile, slice) writes its partial there and a
-    reduce pass sums them in slice order.  Otherwise None (a null pointer):
-    a block per (column tile, row tile) walks every slice in order.  Both
+    """(workspace, slices, slice_k) of a bf16 split-K launch.  While the
+    slices' partials are small, a (slices, M, N) f32 workspace: a block per
+    (column tile, row tile, slice) writes its partial there and a reduce
+    pass sums them in slice order.  Otherwise None (a null pointer): a
+    block per (column tile, row tile) walks every slice in order.  Both
     give the same bits."""
-    slices, slice_k = splitk_plan(k, n)
+    slices, slice_k = splitk_plan(k, n, _sm_count(x2.device))
     m = x2.shape[0]
-    if -(-m // SPLITK_BM) * -(-n // SPLITK_BN) >= SPLITK_WAVE:
+    steps = -(-k // build.SPLITK_BK)
+    if slices * m * n * 4 >= steps * SPLITK_ROWS_BYTES_PER_STEP:
         return None, slices, slice_k
     ws = torch.empty((slices, m, n), dtype=torch.float32, device=x2.device)
     return ws, slices, slice_k

@@ -172,8 +172,9 @@ def _rows_independent(fn, x, y) -> None:
     torch.testing.assert_close(fn(x[-1:]), y[-1:], rtol=0, atol=0)
 
 
-# nm_spmm / nf4_spmm: M = 1024 takes the bf16 kernels' rows dispatch at
-# N = 576 and 1024, the smaller M their slices dispatch (ops._splitk_args)
+# nm_spmm / nf4_spmm: on an H100, M = 1024 takes the bf16 kernels' rows
+# dispatch at every shape here, M <= 100 their slices dispatch
+# (ops._splitk_args)
 _SPLITK_ROWS = _ROWS + (1024,)
 
 
@@ -269,6 +270,28 @@ def test_splitk_dispatches_give_the_same_bits(cuda, k, n, monkeypatch):
             out.append((ops.nm_matmul(x, nmw), ops.nf4_matmul(x, codes, scales)))
         for a, b in zip(*out):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sms", [1, 1000])
+@pytest.mark.parametrize("k,n", [(100, 200), (1536, 576)])
+def test_splitk_kernels_hold_under_any_plan(cuda, k, n, sms, monkeypatch):
+    """nm_spmm and nf4_spmm in bf16 under the plans of other cards: one
+    slice for all of K (1 SM) and one pipeline step a slice (1000 SMs),
+    each M under the dispatch it picks.  Each matches its plain version
+    with its rows independent of M, ragged K and N included."""
+    gen = torch.Generator(device=cuda).manual_seed(k + sms)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    nmw, _ = tbm.nm_encode(w.to(torch.bfloat16))
+    codes, scales = ops.nf4_encode_2d(torch.nn.functional.pad(w, (0, (-n) % 64)))
+    monkeypatch.setattr(ops, "_sm_count", lambda device: sms)
+    for m in _SPLITK_ROWS:
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        for fn, plain in ((lambda xs: ops.nm_matmul(xs, nmw), lambda: ref.nm_spmm_ref(x, nmw)),
+                          (lambda xs: ops.nf4_matmul(xs, codes, scales),
+                           lambda: ref.nf4_spmm_ref(x, codes, scales))):
+            y = fn(x)
+            assert _close(y, plain(), torch.bfloat16)
+            _rows_independent(fn, x, y)
 
 
 def test_wrappers_launch_and_count(cuda):
