@@ -61,7 +61,8 @@ Phases (any failure exits non-zero before the result line):
    down 2048 -> 7168, R 128) at 64 assignment rows, grouped and decode
    bitwise equal per row, and ``salr_spmm`` at its shared expert's
    projections at 8 rows.  Each is timed (profiler device time, L2
-   flushed before every launch) beside the plain version and, where one
+   flushed before every launch; CUDA events for a function whose every
+   trace comes back empty) beside the plain version and, where one
    exists, one library call as a yardstick.
 3. Main path: smollm_135m at full width, compressed once on the GPU from
    seeded dense weights with the NF4 twin (``dual_repr``); 8 requests
@@ -239,9 +240,14 @@ class Timer:
     bitwise_not over 64 MB, whose kernels are left out of the sum.  A trace
     can miss device records, so each function is traced three times and
     the median is taken over the traces that hold the most records.  A
-    function whose traces hold no device record fails the run."""
+    trace can also come back with no device record at all: the function
+    is then traced again, up to ``RETRIES`` times, and if every trace
+    stays empty it is timed with CUDA events instead (``events_ms``), and
+    the run says so on a line of its own."""
 
     FLUSH = "bitwise_not"
+    RETRIES = 3
+    by_events = 0                 # calls of ms(), over every Timer, timed by events
 
     def __init__(self, torch, iters: int = 20, traces: int = 3):
         self.torch = torch
@@ -269,11 +275,40 @@ class Timer:
             fn()
         self.torch.cuda.synchronize()
         traces = [self._trace(fn) for _ in range(self.traces)]
+        for _ in range(self.RETRIES):
+            if max(n for _, n in traces):
+                break
+            traces.append(self._trace(fn))
         most = max(n for _, n in traces)
         if most == 0:
-            fail("the profiler recorded no device activity for a timed function")
+            Timer.by_events += 1
+            ms = self.events_ms(fn)
+            code = getattr(fn, "__code__", None)
+            where = f"line {code.co_firstlineno}" if code else repr(fn)
+            print(f"timer: {len(traces)} profiler traces of the function at {where} held "
+                  f"no device record; timed with CUDA events: {ms:.5f} ms")
+            return ms
         full = sorted(us for us, n in traces if n == most)
         return full[len(full) // 2] / self.iters / 1e3
+
+    def events_ms(self, fn) -> float:
+        """Device time per call from a pair of CUDA events around each call,
+        the L2 flush outside them, median over ``traces`` runs of ``iters``
+        calls.  The span also holds the gaps between fn's kernels, so it
+        reads at or above the profiler's sum of kernel durations."""
+        torch = self.torch
+        runs = []
+        for _ in range(self.traces):
+            pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                     for _ in range(self.iters)]
+            for start, end in pairs:
+                self.flush_buf.bitwise_not_()
+                start.record()
+                fn()
+                end.record()
+            torch.cuda.synchronize()
+            runs.append(sum(start.elapsed_time(end) for start, end in pairs) / self.iters)
+        return sorted(runs)[len(runs) // 2]
 
 
 def device_us(torch, prof, by_name: dict = None, counts: dict = None) -> float:
@@ -2117,6 +2152,9 @@ def tick_profile(torch, eng, prompts) -> dict:
             device_us(torch, prof, by_name, counts)
             if sum(counts.values()) > best[0]:
                 best = (sum(counts.values()), by_name)
+    if best[0] == 0:
+        print(f"phase 3: decode tick: the profiler recorded no device activity in "
+              f"{windows} windows; the device split is not measured")
     by_name = best[1]
     busy_ms = sum(by_name.values()) / n / 1e3
     # salr_spmm.cu's two ops share kernel names; the NF4 loader in the
@@ -2207,7 +2245,8 @@ def main(argv=None) -> int:
         moe_k = moe_checks(torch, timer, gen, rows)
         deepseek_moe_checks(torch, timer, gen, rows)
     print(f"phase 2: every kernel agrees with its plain version "
-          f"({time.perf_counter() - t_start:.1f}s)")
+          f"({time.perf_counter() - t_start:.1f}s); {Timer.by_events} timed functions "
+          f"fell back to CUDA events")
 
     paths = main_path(torch, torch.device("cuda"), args.seed, rows)
     gc.collect()                  # the bitmap model goes before the next two
@@ -2270,6 +2309,7 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": card, "build_s": build_s,
                                               "rows": rows,
+                                              "timed_by_events": Timer.by_events,
                                               "kernels": kernels}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(card)
