@@ -41,10 +41,11 @@ Phases (any failure exits non-zero before the result line):
    and 1024, and ``nf4_spmm`` at the smoke width's padded shape (96
    columns -> 128); the bf16 limit must reject one planted fault each:
    values read at the inclusive popcount, u left unrounded, the
-   dequantized weight left unrounded.  At down, ``nm_spmm``'s and
-   ``nf4_spmm``'s rows computed at M = 1, 4, 8, 33 and 100 must equal
-   the same rows at M = 1024 bit for bit (their split-K kernels' two
-   dispatches, slices and rows), and two calls must give equal bits.  The eight expert-stack kernels, grouped and
+   dequantized weight left unrounded.  At down, the three kernels' rows
+   computed at M = 1, 4, 8, 33 and 100 must equal the same rows at M =
+   1024 bit for bit (in bf16 ``nm_spmm``'s and ``nf4_spmm``'s two
+   split-K dispatches, slices and rows), and two calls must give equal
+   bits.  The eight expert-stack kernels, grouped and
    decode grid over a tiled bitmap (``grouped_salr_spmm``,
    ``decode_salr_spmm``), its NF4 twin (``*_qsalr_spmm``), a masked
    dense stack (``*_dense_spmm``) and a 2:4 stack (``*_nm_spmm``), at
@@ -727,9 +728,10 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
     bf16 limit must reject one planted fault per kernel: nm_spmm's values
     read at the inclusive popcount, fused_lora's u left unrounded,
     nf4_spmm's dequantized weight left unrounded (f32 into the
-    product).  At down, nm_spmm's and nf4_spmm's rows must be bitwise
-    independent of M (1, 4, 8, 33, 100 against 1024) and two calls
-    bitwise equal (``_rows_bitwise``)."""
+    product).  At down, the rows of all three must be bitwise independent
+    of M (1, 4, 8, 33, 100 against 1024: in bf16 nm_spmm's and nf4_spmm's
+    slices and rows dispatches) and two calls bitwise equal
+    (``_rows_bitwise``)."""
     from repro_torch.core import bitmap as bm
     from repro_torch.core.quant import nf4_dequant_2d
     from repro_torch.kernels import ops, ref
@@ -755,6 +757,7 @@ def method_checks(torch, timer, gen, rows: list) -> dict:
             n_pad = w_nf4.shape[1]
             nnz = int(w_nm.ne(0).sum())
             splitk = {"nm_spmm": lambda xs: ops.nm_matmul(xs, nmw),
+                      "fused_lora": lambda xs: ops.lora_matmul(xs, a, b),
                       "nf4_spmm": lambda xs: ops.nf4_matmul(xs, codes, scales)}
             for m in rows_at.get(lname, (4, 8, 1024)):
                 x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
@@ -2159,10 +2162,12 @@ def tick_profile(torch, eng, prompts) -> dict:
     busy_ms = sum(by_name.values()) / n / 1e3
     # salr_spmm.cu's two ops share kernel names; the NF4 loader in the
     # template arguments marks qsalr_spmm's, so it is matched first (after
-    # the expert kernels, whose row map names them).  The nm_spmm_kernel
-    # and nf4_spmm_kernel prefixes cover each op's split-K kernels
-    # (*_splitk, *_rows), its own reduce pass (*_reduce) and its f32 column
-    # GEMM
+    # the expert kernels, whose row map names them: the scalar body's
+    # moe_*_kernel<T, W, Map> and the bf16 NF4 body's moe_mma_*_kernel<W,
+    # Map, FAST> alike).  The nm_spmm_kernel and nf4_spmm_kernel prefixes
+    # cover each op's split-K kernels (*_splitk, *_rows), its own reduce
+    # pass (*_reduce) and its f32 column GEMM; fused_lora_kernel its u
+    # pass (*_u), its output pass (*_out) and its f32 column GEMM
     families = {"grouped expert kernels": ("TileMap",),
                 "decode-grid expert kernels": ("RowMap",),
                 "qsalr_spmm": ("NF4Values",),

@@ -1,18 +1,30 @@
 #!/usr/bin/env python3
 """Device time per call of the SpMM kernels of one checkout, for A/B runs.
 
-    python3 spmm_ab.py TREE LABEL [--plan-sms N] [--dispatch rows|slices]
+    python3 spmm_ab.py TREE LABEL [--only GROUP,...] [--plan-sms N]
+                                  [--dispatch rows|slices]
 
 Imports ``repro_torch`` and ``chip_smoke.Timer`` from the checkout at
-TREE (building its kernels there), times ``salr_spmm``, ``qsalr_spmm``
-and ``bitmap_spmm`` in bf16 at smollm_135m's four projection shapes at
-M = 4 and 8, ``nm_spmm`` and ``nf4_spmm`` at smollm_135m's wo and down
-at M = 4, 8 and 256 to 1024 and ``nm_spmm`` at granite_moe_1b_a400m's
-wo at M = 8 and 256 to 1024 (profiler device time, L2 flushed, median of
-3 traces), and prints one JSON line tagged LABEL, with each ``nm_spmm``
-/ ``nf4_spmm`` call's device time also split by the kernels it
-launches.  ``--plan-sms N`` cuts K for the split-K kernels as on a card
-of N SMs (``ops.splitk_plan``) instead of this card's count;
+TREE (building its kernels there), times in bf16 (profiler device time,
+L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
+(default: all), and prints one JSON line tagged LABEL:
+
+- ``tiled``: ``salr_spmm``, ``qsalr_spmm`` and ``bitmap_spmm`` at
+  smollm_135m's four projection shapes at M = 4 and 8;
+- ``splitk``: ``nm_spmm`` and ``nf4_spmm`` at smollm_135m's wo and down
+  at M = 4, 8 and 256 to 1024, ``nm_spmm`` at granite_moe_1b_a400m's wo
+  at M = 8 and 256 to 1024;
+- ``lora``: ``fused_lora`` (R = 128) at smollm_135m's wo and down and
+  granite_moe_1b_a400m's wo at M = 4 to 1024;
+- ``experts``: ``grouped_qsalr_spmm`` and ``decode_qsalr_spmm`` at
+  granite_moe_1b_a400m's gate/up and down stacks (E 32, top-8, R = 128)
+  at 8 tokens (64 rows) and 128 tokens (decode: 1024 rows) or 1024
+  tokens (grouped: 8192 rows), and the other three families' grouped and
+  decode kernels (tiled bitmap, masked dense, 2:4) at 8 tokens.
+
+Each split-K call (``splitk``, ``lora``) is also split by the kernels it
+launches.  ``--plan-sms N`` cuts K for ``nm_spmm`` and ``nf4_spmm`` as
+on a card of N SMs (``ops.splitk_plan``) instead of this card's count;
 ``--dispatch`` takes their rows or their slices dispatch at every M
 instead of the one ``ops._splitk_args`` picks.  To compare two
 versions, unpack each into its own directory (``git archive``) and
@@ -35,6 +47,10 @@ from repro_torch.core import salr  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 
 assert Path(ops.__file__).resolve().is_relative_to(root)
+GROUPS = ("tiled", "splitk", "lora", "experts")
+only = (sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv
+        else GROUPS)
+assert set(only) <= set(GROUPS), only
 if "--plan-sms" in sys.argv:
     plan_sms = int(sys.argv[sys.argv.index("--plan-sms") + 1])
     ops._sm_count = lambda device: plan_sms
@@ -72,35 +88,81 @@ def ms_by_kernel(fn) -> dict:
 
 gen = torch.Generator(device="cuda").manual_seed(0)
 out = {}
+# up to 1024 around where the split-K dispatches cross (PERF.md)
+BIG = (256, 384, 512, 576, 640, 768, 896, 960, 1024)
 with torch.inference_mode():
-    for lname, (k, n) in {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/up": (576, 1536),
-                          "down": (1536, 576)}.items():
-        w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
-        tbw, _ = salr._tiled_encode(w, salr.SALRConfig(dtype="bfloat16"))
-        q, _ = bm.tile_quantize_nf4(tbw)
-        a = (torch.randn((k, 128), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
-        b = ops._pad_bcat((torch.randn((128, n), generator=gen, device="cuda") / 12).bfloat16(),
-                          tbw.cols)
-        for m in (4, 8):
-            x = (torch.randn((m, k), generator=gen, device="cuda") / 4).bfloat16()
-            out[f"{lname} M={m}"] = {
-                "salr": timer.ms(lambda: ops.salr_matmul(x, tbw, a, b)),
-                "qsalr": timer.ms(lambda: ops.qsalr_matmul(x, q, a, b)),
-                "bitmap": timer.ms(lambda: ops.bitmap_matmul(x, tbw))}
-    # up to 1024 around the M where the row tiles x column tiles reach 132
-    # (960 at N = 576, 576 at N = 1024)
-    big = (256, 384, 512, 576, 640, 768, 896, 960, 1024)
-    for lname, (k, n), kernels, rows in (("wo", (576, 576), ("nm", "nf4"), (4, 8, *big)),
-                                         ("down", (1536, 576), ("nm", "nf4"), (4, 8, *big)),
-                                         ("granite wo", (1024, 1024), ("nm",), (8, *big))):
+    if "tiled" in only:
+        for lname, (k, n) in {"wq/wo": (576, 576), "wk/wv": (576, 192),
+                              "gate/up": (576, 1536), "down": (1536, 576)}.items():
+            w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+            tbw, _ = salr._tiled_encode(w, salr.SALRConfig(dtype="bfloat16"))
+            q, _ = bm.tile_quantize_nf4(tbw)
+            a = (torch.randn((k, 128), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+            b = ops._pad_bcat((torch.randn((128, n), generator=gen, device="cuda")
+                               / 12).bfloat16(), tbw.cols)
+            for m in (4, 8):
+                x = (torch.randn((m, k), generator=gen, device="cuda") / 4).bfloat16()
+                out[f"{lname} M={m}"] = {
+                    "salr": timer.ms(lambda: ops.salr_matmul(x, tbw, a, b)),
+                    "qsalr": timer.ms(lambda: ops.qsalr_matmul(x, q, a, b)),
+                    "bitmap": timer.ms(lambda: ops.bitmap_matmul(x, tbw))}
+    # fused_lora's plan is taken at every M: timed from decode up
+    lora_rows = (4, 8, 16, 32, 48, 64, 96, 128, 256, 512, 1024)
+    shapes = (("wo", (576, 576), ("nm", "nf4", "lora")),
+              ("down", (1536, 576), ("nm", "nf4", "lora")),
+              ("granite wo", (1024, 1024), ("nm", "lora")))
+    for lname, (k, n), kernels in shapes:
+        kernels = [kk for kk in kernels if ("lora" if kk == "lora" else "splitk") in only]
+        if not kernels:
+            continue
+        rows = sorted({*((4, 8, *BIG) if lname != "granite wo" else (8, *BIG)),
+                       *(lora_rows if "lora" in kernels else ())})
         w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
         nmw, _ = bm.nm_encode(w.bfloat16())
         codes, scales = ops.nf4_encode_2d(w)
+        a = (torch.randn((k, 128), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+        b = (torch.randn((128, n), generator=gen, device="cuda") / math.sqrt(128)).bfloat16()
         for m in rows:
             x = (torch.randn((m, k), generator=gen, device="cuda") / 4).bfloat16()
             fns = {"nm": lambda: ops.nm_matmul(x, nmw),
-                   "nf4": lambda: ops.nf4_matmul(x, codes, scales)}
-            out[f"{lname} M={m}"] = {kk: timer.ms(fns[kk]) for kk in kernels}
-            for kk in kernels:
+                   "nf4": lambda: ops.nf4_matmul(x, codes, scales),
+                   "lora": lambda: ops.lora_matmul(x, a, b)}
+            timed = [kk for kk in kernels
+                     if m in (lora_rows if kk == "lora" else (4, 8, *BIG))]
+            out[f"{lname} M={m}"] = {kk: timer.ms(fns[kk]) for kk in timed}
+            for kk in timed:
                 out[f"{lname} M={m} {kk} by kernel"] = ms_by_kernel(fns[kk])
+    if "experts" in only:
+        from repro_torch.models import moe
+        n_exp, topk = cs.MOE_EXPERTS, cs.MOE_TOPK
+        for lname, (k, n) in cs.MOE_SHAPES.items():
+            stacks, _ = cs._moe_stacks(torch, gen, torch.bfloat16, "bfloat16", k, n)
+            a = (torch.randn((n_exp, k, 128), generator=gen, device="cuda")
+                 / math.sqrt(k)).bfloat16()
+            b = (torch.randn((n_exp, 128, n), generator=gen, device="cuda")
+                 / math.sqrt(128)).bfloat16()
+            for n_tok, routes in ((8, ("grouped", "decode")), (128, ("decode",)),
+                                  (1024, ("grouped",))):
+                x = (torch.randn((n_tok, k), generator=gen, device="cuda") / 4).bfloat16()
+                top_i = torch.rand((n_tok, n_exp), generator=gen,
+                                   device="cuda").argsort(dim=1)[:, :topk]
+                g = moe.group_assignments(top_i, n_exp,
+                                          moe._group_block_m(n_tok * topk, n_exp))
+                xs = x.new_zeros((g.m_pad, k))
+                xs.index_copy_(0, g.dst, x.index_select(0, g.tok))
+                xd = x.repeat_interleave(topk, dim=0)
+                row_e = top_i.reshape(-1).to(torch.int32)
+                for kind, st in stacks.items():
+                    if kind != "qsalr" and n_tok != 8:
+                        continue
+                    fns = {"grouped": lambda: getattr(ops, f"grouped_{kind}_matmul")(
+                               xs, g.tile_expert, st, a, b, block_m=g.block_m),
+                           "decode": lambda: getattr(ops, f"decode_{kind}_matmul")(
+                               xd, row_e, st, a, b)}
+                    for route in routes:
+                        rows = xs.shape[0] if route == "grouped" else xd.shape[0]
+                        key = f"{route}_{kind}_spmm {lname} tokens={n_tok} rows={rows}"
+                        out[key] = timer.ms(fns[route])
+                        out[f"{key} by kernel"] = ms_by_kernel(fns[route])
+            del stacks, a, b
 print(json.dumps({"tree": sys.argv[2], **out}))

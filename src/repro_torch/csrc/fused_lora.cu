@@ -1,6 +1,5 @@
 // fused_lora: the concatenated-adapter term alone,
-//     y = bf16(x @ A_cat) @ B_cat,
-// with u = x @ A_cat kept on chip.
+//     y = bf16(x @ A_cat) @ B_cat.
 //
 // Replaces: src/repro/kernels/fused_lora.py:fused_lora_pallas
 // (ops.lora_matmul, the adapter term of every layer whose base op carries
@@ -15,27 +14,57 @@
 // Bound on the H100: bytes at decode.  A smollm_135m decode step (M = 4..8,
 // R = 128: LoRA 64 + residual 64) reads A_cat (K x 128) and B_cat
 // (128 x 576) for about 2 x M x (K + N) x R flops: 4..8 flops per byte.
+// At prefill size (M = 1024) the same bytes carry 0.6 GFLOP (down).
 //
-// Design: the TPU kernel builds u on its first N pass and reuses it for the
-// later N tiles, which needs its grid to run in order.  GPU blocks run in
-// no order, so every block computes u for its 8 rows into shared memory
-// (thread t owning u's columns t, t + 128, ...: the column GEMM of
-// column_gemm.cuh over A_cat), rounds it, then produces its 128 output
-// columns from it (thread t owning one, the reduction over R in order).
-// At decode N/128 = 5 blocks each recompute the same u, which costs K x R
-// x 8 FMAs a block and saves a launch and u's round trip through device
-// memory.  Each row is reduced in one fixed order, so a row's result does
-// not depend on M.  Up to MAX_RANK = 256 (ops.LORA_MAX_RANK).
+// Design, bf16: two passes on the tensor cores (mma.sync m16n8k16, bf16
+// operands, f32 accumulators), with the split-K walk of splitk_gemm.cuh.
+//   1. u = x @ A_cat (fused_lora_kernel_u): A_cat is a dense (K, R) weight,
+//      so a DenseTile copies a step's (32, 64) slab of it with 16-byte
+//      cp.async straight into the bf16 stage the mma reads, no decode.  The
+//      wrapper's plan (ops.lora_plan) cuts K into at most 8 slices of whole
+//      32-row steps, from K alone, never from M; a block per (u column
+//      tile, row tile, slice) writes the slice's f32 partial to ws (S, M,
+//      R): down at M = 4 2 x 8 blocks of 6 steps, where the column GEMM
+//      ran 5 blocks over all 1536 rows; at M = 1024 256 blocks.
+//   2. fused_lora_kernel_out, a block per (64 output columns, 64 rows):
+//      sums the slices in slice order (one round of 16-byte loads), rounds
+//      u once to bf16 into shared memory beside a (R, 64) column tile of
+//      B_cat copied with cp.async, and multiplies the two with ldmatrix
+//      fragments, R / 16 k16 steps (8 at R = 128); writes y once.
+// Why at most 8 slices, and one dispatch (the spmm_ab.py sweep of M = 4 to
+// 1024 on an H100, PERF.md): every output block sums every slice of its
+// rows, so the 48 one-step slices of splitk_plan cost more in that sum
+// than they save in the u pass (down M = 4: 0.0102 against 0.0080 ms), and
+// a block walking all of K (PR 17's rows dispatch for nm_spmm) leaves the
+// card idle at M = 1024 (32 blocks: 0.0345 against 0.0189 ms).
+// No atomics.  mma.sync keeps rows apart, and a row meets the same slices,
+// k16 steps and sum order at every M, so its bits do not depend on the
+// batch it came in.  FAST kernels (x, A_cat and B_cat
+// 16-byte aligned, K, R and N multiples of 8: every main-path shape) give
+// each thread one fixed 16-byte chunk per stream and step; the others copy
+// with the widest width the addresses allow.  It replaces a column GEMM,
+// one thread per output column, every block recomputing u over all of K
+// on CUDA cores (0.1229 ms at down M = 4, 0.1514 at M = 1024; NVIDIA H100
+// 80GB HBM3, 700.00 W; spmm_ab.py, PERF.md).  f32 keeps that column GEMM:
+// f32 is held at 1e-5, which TF32 tensor cores cannot meet.  Up to
+// MAX_RANK = 256 (ops.LORA_MAX_RANK).
 #include "column_gemm.cuh"
+#include "splitk_gemm.cuh"
 
 namespace {
 
+using salr::splitk::bf16;
+
 constexpr int MAX_RANK = 256;
 
-template <typename T>
+// f32: the column GEMM.  Every block computes u for its 8 rows into shared
+// memory (thread t owning u's columns t, t + 128, ...), rounds it, then
+// produces its 128 output columns from it (thread t owning one, the
+// reduction over R in order).
 __global__ void __launch_bounds__(salr::colgemm::THREADS)
-fused_lora_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ b,
-                  T* __restrict__ y, int M, int K, int R, int N) {
+fused_lora_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                  const float* __restrict__ b, float* __restrict__ y, int M, int K, int R,
+                  int N) {
   using namespace salr::colgemm;
   __shared__ __align__(16) XStage s;
   __shared__ float u[BM][MAX_RANK];
@@ -43,18 +72,18 @@ fused_lora_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __r
   for (int r0 = 0; r0 < R; r0 += THREADS) {
     const int r = r0 + threadIdx.x;
     float acc[BM] = {0.f};
-    accumulate(s, acc, x, DenseColumn<T>(a, R, r), M, K, m0);
+    accumulate(s, acc, x, DenseColumn<float>(a, R, r), M, K, m0);
     if (r < R) {
 #pragma unroll
-      for (int i = 0; i < BM; ++i) u[i][r] = salr::round_to<T>(acc[i]);
+      for (int i = 0; i < BM; ++i) u[i][r] = acc[i];
     }
   }
   __syncthreads();
   const int n = blockIdx.y * THREADS + threadIdx.x;
-  const DenseColumn<T> bcol(b, N, n);
+  const DenseColumn<float> bcol(b, N, n);
   float acc[BM] = {0.f};
   for (int r0 = 0; r0 < R; r0 += FETCH) {  // FETCH rows of B_cat in flight
-    T raw[FETCH];
+    float raw[FETCH];
 #pragma unroll
     for (int j = 0; j < FETCH; ++j) raw[j] = bcol.fetch(min(r0 + j, R - 1));
 #pragma unroll
@@ -69,30 +98,164 @@ fused_lora_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __r
   store_rows(y, acc, M, N, m0, n);
 }
 
-template <typename T>
-int launch(const void* x, const void* a, const void* b, void* y, int M, int K, int R, int N,
-           cudaStream_t stream) {
-  using namespace salr::colgemm;
-  if (R < 1 || R > MAX_RANK) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((M + BM - 1) / BM, (N + THREADS - 1) / THREADS);
-  fused_lora_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<T*>(y), M, K, R, N);
-  return static_cast<int>(cudaGetLastError());
+// bf16, pass 1: the walk over x and A_cat's (K, R) rows.
+struct UShared {
+  salr::splitk::XRing xs;
+  salr::splitk::WTile raw[salr::splitk::STAGES];  // A_cat's slabs, multiplied in place
+};
+
+// Block (u column tile, row tile, slice) writes the slice's f32 partial to
+// ws[slice] (M, R).
+template <bool FAST>
+__global__ void __launch_bounds__(salr::splitk::THREADS, salr::splitk::MIN_BLOCKS)
+fused_lora_kernel_u(const bf16* __restrict__ x, const bf16* __restrict__ a,
+                    float* __restrict__ ws, int M, int K, int R, int slice_k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<UShared*>(smem);
+  const salr::splitk::DenseTile<FAST> tile(a, R, blockIdx.x);
+  // the decode buffer argument is unread: a DenseTile's stage is its tile
+  salr::splitk::slices_block<FAST>(s.xs, s.raw, s.raw[0], tile, x, ws, M, K, R, slice_k);
+}
+
+// bf16, pass 2: u rounded to bf16 (all R of the block's rows) and B_cat's
+// (R, 64) column tile, zero-padded to whole k16 steps.
+constexpr int ULD = MAX_RANK + 8;  // u row pitch (bf16): ldmatrix rows on distinct banks
+
+struct OutShared {
+  uint16_t u[salr::splitk::BM][ULD];
+  uint16_t b[MAX_RANK][salr::splitk::WLD];
+};
+
+// u[i / R][i % R] = bf16(ws[0][i] + ws[1][i] + ... + ws[S-1][i]) for the
+// `live` entries i of the block's rows (each slice MR floats from ws), f32
+// in slice order.  With R a multiple of 4, a thread sums 4 neighbouring
+// entries, SB slices' 16-byte loads made before their adds (one round of
+// loads at the plan's at most 8 slices).
+__device__ __forceinline__ void sum_u(uint16_t (*u)[ULD], const float* __restrict__ ws, int S,
+                                      size_t MR, int live, int R) {
+  constexpr int SB = 8;  // ops.LORA_SLICES
+  constexpr int T = salr::splitk::THREADS;
+  if (R % 4) {  // one entry at a time
+    for (int i = threadIdx.x; i < live; i += T) {
+      float t = ws[i];
+      for (int sl = 1; sl < S; ++sl) t += ws[sl * MR + i];
+      u[i / R][i % R] = __bfloat16_as_ushort(__float2bfloat16(t));
+    }
+    return;
+  }
+  const int q = R / 4;  // ws 16-byte aligned: R floats a row
+  for (int i = threadIdx.x; i < live / 4; i += T) {
+    const int row = i / q, c = (i - row * q) * 4;
+    const float* src = ws + static_cast<size_t>(row) * R + c;
+    float4 t = *reinterpret_cast<const float4*>(src);
+    for (int s0 = 1; s0 < S; s0 += SB) {
+      float4 v[SB];
+#pragma unroll
+      for (int j = 0; j < SB; ++j)
+        if (s0 + j < S) v[j] = *reinterpret_cast<const float4*>(src + (s0 + j) * MR);
+#pragma unroll
+      for (int j = 0; j < SB; ++j) {
+        if (s0 + j < S) {
+          t.x += v[j].x;
+          t.y += v[j].y;
+          t.z += v[j].z;
+          t.w += v[j].w;
+        }
+      }
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(t.x, t.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(t.z, t.w);
+    *reinterpret_cast<uint2*>(&u[row][c]) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                       *reinterpret_cast<const uint32_t*>(&hi));
+  }
+}
+
+template <bool FAST>
+__global__ void __launch_bounds__(salr::splitk::THREADS, salr::splitk::MIN_BLOCKS)
+fused_lora_kernel_out(const float* __restrict__ ws, const bf16* __restrict__ b,
+                      bf16* __restrict__ y, int S, int M, int R, int N) {
+  using namespace salr::splitk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<OutShared*>(smem);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int width = min(BN, N - n0), rp = (R + 15) / 16 * 16;
+  // B_cat's rows [0, R) at the tile's columns, zero past N and on [R, rp)
+  const char* src = reinterpret_cast<const char*>(b + n0);
+  if constexpr (FAST) {
+    for (int i = threadIdx.x; i < R * (BN / 8); i += THREADS) {
+      const int r = i / (BN / 8), c = (i % (BN / 8)) * 16;
+      char* d = reinterpret_cast<char*>(s.b[r]) + c;
+      if (c < width * 2) copy_chunk<16>(d, src + static_cast<size_t>(r) * N * 2 + c);
+      else zero_chunk<16>(d);
+    }
+  } else {
+    copy_rows(s.b, WLD * 2, src, static_cast<size_t>(N) * 2, R, BN * 2, width * 2);
+  }
+  for (int i = threadIdx.x; i < (rp - R) * (WLD / 8); i += THREADS)
+    *reinterpret_cast<uint4*>(&s.b[R + i / (WLD / 8)][8 * (i % (WLD / 8))]) =
+        make_uint4(0u, 0u, 0u, 0u);
+  cp_async_commit();
+  // u = the slices' sum in slice order, rounded once; zero past M and R
+  const int rows = min(BM, M - m0);
+  for (int i = threadIdx.x; i < (BM - rows) * rp; i += THREADS)
+    s.u[rows + i / rp][i % rp] = 0;
+  for (int i = threadIdx.x; i < rows * (rp - R); i += THREADS)
+    s.u[i / (rp - R)][R + i % (rp - R)] = 0;
+  sum_u(s.u, ws + static_cast<size_t>(m0) * R, S, static_cast<size_t>(M) * R, rows * R, R);
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[WN / 8][4] = {};
+  if (m0 + warp_row0() < M) {
+    for (int kk = 0; kk < rp; kk += 16) mma_k16<ULD>(s.u, s.b, kk, acc);
+  }
+  bf16* out = y + n0;
+  for_each_out(acc, m0, M, width, [&](int row, int col, float v) {
+    out[static_cast<size_t>(row) * N + col] = __float2bfloat16(v);
+  });
+}
+
+template <bool FAST>
+int launch_bf16(const void* x, const void* a, const void* b, void* y, void* ws, int M, int K,
+                int R, int N, int slices, int slice_k, cudaStream_t stream) {
+  using namespace salr::splitk;
+  auto* wsf = static_cast<float*>(ws);
+  const cudaError_t err = launch_with_smem<fused_lora_kernel_u<FAST>, UShared>(
+      dim3((R + BN - 1) / BN, (M + BM - 1) / BM, slices), stream, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(a), wsf, M, K, R, slice_k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_with_smem<fused_lora_kernel_out<FAST>, OutShared>(
+      dim3((N + BN - 1) / BN, (M + BM - 1) / BM), stream, wsf, static_cast<const bf16*>(b),
+      static_cast<bf16*>(y), slices, M, R, N));
 }
 
 }  // namespace
 
-// x (M, K); a (K, R); b (R, N); y (M, N); 1 <= R <= 256.  dtype: 0 =
+// x (M, K); a (K, R); b (R, N); y (M, N); 1 <= R <= 256.  bf16 only: K cut
+// into `slices` slices of slice_k rows (ops.lora_plan over K), ws an f32
+// (slices, M, R) workspace.  f32 ignores ws and the plan.  dtype: 0 =
 // float32, 1 = bfloat16; device: the CUDA ordinal of the tensors.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int fused_lora(const void* x, const void* a, const void* b, void* y, int M, int K,
-                          int R, int N, int dtype, int device, void* stream) {
+// cudaGetLastError() after the launches.
+extern "C" int fused_lora(const void* x, const void* a, const void* b, void* y, void* ws, int M,
+                          int K, int R, int N, int slices, int slice_k, int dtype, int device,
+                          void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (R < 1 || R > MAX_RANK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, a, b, y, M, K, R, N, st);
-  return launch<__nv_bfloat16>(x, a, b, y, M, K, R, N, st);
+  if (dtype == 0) {
+    using namespace salr::colgemm;
+    dim3 grid((M + BM - 1) / BM, (N + THREADS - 1) / THREADS);
+    fused_lora_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(a),
+        static_cast<const float*>(b), static_cast<float*>(y), M, K, R, N);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (ws == nullptr || !salr::splitk::plan_ok(K, slices, slice_k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using salr::splitk::aligned16;
+  if (salr::splitk::x_vec(x, K) && aligned16(a) && aligned16(b) && R % 8 == 0 && N % 8 == 0)
+    return launch_bf16<true>(x, a, b, y, ws, M, K, R, N, slices, slice_k, st);
+  return launch_bf16<false>(x, a, b, y, ws, M, K, R, N, slices, slice_k, st);
 }
 
 extern "C" const char* error_string(int code) {

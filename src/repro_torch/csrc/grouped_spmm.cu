@@ -35,31 +35,58 @@
 // rows.  Here a block of the decode kernel owns (column block, expert e)
 // and gathers the rows whose row_expert is e itself: it scans row_expert
 // in windows of 1024 rows, compacts the matches into shared memory (a
-// block-wide prefix count) and computes them 32 at a time, so the work is
-// k-way, with no sort.  Grid row E (one past the last expert) collects
-// the rows of no expert (row_expert outside [0, E), the -1 pad rows) and
-// writes exact zeros for them without reading x, so junk or NaN in a pad
-// row never reaches the output and expert -1 is never indexed.  A block
-// of the grouped kernel owns (column block, M tile t): the tile's rows
-// are contiguous and belong to expert tile_expert[t]; a tile taller than
-// 32 rows is walked 32 rows at a time, so no row block straddles two
+// block-wide prefix count) and computes them a chunk at a time, so the
+// work is k-way, with no sort.  Grid row E (one past the last expert)
+// collects the rows of no expert (row_expert outside [0, E), the -1 pad
+// rows) and writes exact zeros for them without reading x, so junk or NaN
+// in a pad row never reaches the output and expert -1 is never indexed.
+// A block of the grouped kernel owns (column block, M tile t): the tile's
+// rows are contiguous and belong to expert tile_expert[t]; a tile taller
+// than a chunk is walked a chunk at a time, so no chunk straddles two
 // tiles (block_m is 8 at decode).  A tile whose expert is out of range
-// writes zeros.
+// writes zeros.  Both routes run two launches: the first computes u =
+// x[r] @ A_cat[e(r)] into an (M, R) scratch, summed in f32 and rounded
+// once to the operand type; the second adds, per row, the base's product
+// and u[r] @ B_cat[e][:, cols], each summed in f32 from zero, and rounds y
+// once.  One body serves both maps, so the grouped and decode kernels are
+// bitwise equal per row by construction and a row does not depend on
+// which rows share its block or on M.  No library GEMM computes any part.
 //
-// Both kernels run the row work of salr_spmm.cu (tiled_bitmap.cuh): a
-// first launch computes u = x[r] @ A_cat[e(r)] into an (M, R) scratch,
-// reduced in f32 in k order and rounded once to the operand type; the
-// second stages a BK x BN slab of W[e] into shared memory as f32 (a
-// bitmap slab decoded from its words, an N:M slab from its group bytes, a
-// dense slab as it is) and reduces each row over k in order, then adds
-// u[r] @ B_cat[e][:, cols] reduced in f32 and rounds y once.  One device
-// function serves each piece for both routes (rows_dense_dot for u, the
-// adapter term and the dense base, rows_bitmap_dot and rows_nm_dot for
-// the encoded bases), so the grouped and decode kernels are bitwise
-// equal per row by construction, a row does not depend on which rows
-// share its block or on M, and a bitmap row equals what salr_spmm gives
-// for its expert's weights.  No library GEMM computes any part.  Tensor
-// cores (wgmma), TMA and skipping slack tiles are later work.
+// Two bodies:
+//   - bf16 NF4 bitmap experts (grouped_qsalr_spmm, decode_qsalr_spmm):
+//     the tensor cores (expert_mma.cuh on splitk_gemm.cuh's walk).  A
+//     block owns 64 columns and chunks of up to 64 rows; each 32-row step
+//     of K copies the rows' x and the step's cells (words, codes, scale)
+//     with cp.async through a 4-stage ring (16-byte chunks on the main
+//     path: tile 256, cap_t 160), decodes the cells into a bf16 (32, 64)
+//     tile (__popc prefix slot, the level table in shared memory x the
+//     cell's f32 scale, rounded once to bf16: the reference's rounding)
+//     and runs mma.sync m16n8k16 in m16 row groups, so a decode tile of
+//     block_m 8 leaves 8 of 16 rows idle where the scalar body idled 24 of
+//     32.  u and the adapter term run on the same walk, A_cat[e] and
+//     B_cat[e] slabs copied straight into the bf16 stage.  The grid fills
+//     the card at granite's decode (8 x 33 blocks at gate/up), so K is not
+//     split.  A grouped chunk whose x rows are all zero (group_assignments'
+//     slack tiles, past every expert's rows) skips its walks and stores
+//     the zeros they would give.  It replaced the scalar body below, which
+//     took 0.3329 / 0.2248 ms (grouped / decode, granite gate/up, 64 rows)
+//     where this one takes 0.0662 / 0.0651, and 2.78 ms where it takes
+//     0.323 at 8192 grouped rows (NVIDIA H100 80GB HBM3, 700.00 W;
+//     chip_smoke.py phase 2, spmm_ab.py; PERF.md).
+//   - every other family and f32 (the scalar body of salr_spmm.cu,
+//     tiled_bitmap.cuh): a block of 128 threads owns 32 columns and chunks
+//     of 32 rows, stages a BK x BN slab of W[e] into shared memory as f32
+//     (a bitmap slab decoded from its words, an N:M slab from its group
+//     bytes, a dense slab as it is) and reduces each row over k in order,
+//     one thread per (row, column), on CUDA cores (rows_dense_dot for u,
+//     the adapter term and the dense base, rows_bitmap_dot and rows_nm_dot
+//     for the encoded bases).  A plain bitmap row there equals what
+//     salr_spmm gives for its expert's weights.  f32 is held at 1e-5,
+//     which TF32 tensor cores cannot meet; the bf16 plain, dense and N:M
+//     families are later work.
+#include <type_traits>
+
+#include "expert_mma.cuh"
 #include "tiled_bitmap.cuh"
 
 namespace {
@@ -72,7 +99,7 @@ using salr::Smem;
 using salr::THREADS;
 using salr::WARPS;
 
-constexpr int WINDOW = THREADS * 8;  // row_expert entries a decode block compacts at once
+constexpr int WINDOW = 1024;  // row_expert entries a decode block compacts at once
 
 // The value loader of expert e's cells (an expert holds K x n_tiles cells).
 template <typename T>
@@ -254,24 +281,25 @@ __device__ __forceinline__ void store_rows(T* __restrict__ y, const float acc[RO
 }
 
 // Grouped rows: grid y = M tile t, rows [t*block_m, (t+1)*block_m), all of
-// expert tile_expert[t].  Calls body(e) once per 32-row chunk with the
-// chunk's rows in rows_s (-1 past the tile); e = -1 for an expert out of
-// range.
+// expert tile_expert[t].  Calls body(e, n) once per CHUNK-row chunk with
+// the chunk's n rows in rows_s (-1 past the tile); e = -1 for an expert
+// out of range.  NT: the block's threads (CHUNK <= NT).
 struct TileMap {
+  static constexpr bool kSlack = true;  // tiles past every expert's rows hold zero x
   const int* tile_expert;
   int M, E, block_m;
 
-  template <typename F>
+  template <int CHUNK, int NT, typename F>
   __device__ __forceinline__ void for_each_chunk(int* rows_s, int*, F&& body) const {
     const int t = blockIdx.y;
     const int te = tile_expert[t];
     const int e = (te >= 0 && te < E) ? te : -1;
     const int r0 = t * block_m, r1 = min(r0 + block_m, M);
-    for (int c0 = r0; c0 < r1; c0 += BM) {
-      if (threadIdx.x < BM)
+    for (int c0 = r0; c0 < r1; c0 += CHUNK) {
+      if (threadIdx.x < CHUNK)
         rows_s[threadIdx.x] = c0 + (int)threadIdx.x < r1 ? c0 + (int)threadIdx.x : -1;
       __syncthreads();
-      body(e);
+      body(e, min(CHUNK, r1 - c0));
       __syncthreads();
     }
   }
@@ -279,24 +307,26 @@ struct TileMap {
 
 // Decode rows: grid y = expert e in [0, E]; the block gathers the rows
 // whose row_expert is e (for e = E: outside [0, E), body called with -1),
-// in ascending order, 32 per chunk.
+// in ascending order, CHUNK per chunk, from windows of WINDOW rows.
 struct RowMap {
+  static constexpr bool kSlack = false;
   const int* row_expert;
   int M, E;
 
-  template <typename F>
+  template <int CHUNK, int NT, typename F>
   __device__ __forceinline__ void for_each_chunk(int* rows_s, int* list, F&& body) const {
-    __shared__ int warp_total[WARPS];
+    constexpr int PER = WINDOW / NT;  // rows a thread tests per window
+    __shared__ int warp_total[NT / 32];
     const int e = blockIdx.y;
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     for (int w0 = 0; w0 < M; w0 += WINDOW) {
-      // each thread tests 8 consecutive rows, then a block-wide prefix
+      // each thread tests PER consecutive rows, then a block-wide prefix
       // count places its matches in the list
-      const int base = w0 + (int)threadIdx.x * 8;
-      bool own[8];
+      const int base = w0 + (int)threadIdx.x * PER;
+      bool own[PER];
       int cnt = 0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < PER; ++j) {
         const int r = base + j;
         const int re = r < M ? row_expert[r] : -1;
         own[j] = r < M && (e < E ? re == e : (re < 0 || re >= E));
@@ -312,20 +342,20 @@ struct RowMap {
       __syncthreads();
       int before = 0, total = 0;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
+      for (int w = 0; w < NT / 32; ++w) {
         before += w < warp ? warp_total[w] : 0;
         total += warp_total[w];
       }
       int o = before + incl - cnt;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < PER; ++j)
         if (own[j]) list[o++] = base + j;
       __syncthreads();
-      for (int c0 = 0; c0 < total; c0 += BM) {
-        if (threadIdx.x < BM) rows_s[threadIdx.x] =
+      for (int c0 = 0; c0 < total; c0 += CHUNK) {
+        if (threadIdx.x < CHUNK) rows_s[threadIdx.x] =
             c0 + (int)threadIdx.x < total ? list[c0 + threadIdx.x] : -1;
         __syncthreads();
-        body(e < E ? e : -1);
+        body(e < E ? e : -1, min(CHUNK, total - c0));
         __syncthreads();
       }
     }
@@ -344,7 +374,7 @@ moe_adapter_u_kernel(const T* __restrict__ x, const T* __restrict__ a, T* __rest
   __shared__ int rows_s[BM];
   __shared__ int list[WINDOW];
   const int r0 = blockIdx.x * BN;
-  map.for_each_chunk(rows_s, list, [&](int e) {
+  map.template for_each_chunk<BM, THREADS>(rows_s, list, [&](int e, int) {
     if (e < 0) return;
     float acc[ROWS_PER_THREAD] = {0.f};
     rows_dense_dot(s, acc, x, K, rows_s, a + (size_t)e * K * R, K, r0, R);
@@ -360,7 +390,7 @@ __device__ __forceinline__ void moe_body(Smem& s, int* rows_s, int* list,
                                          const T* __restrict__ u, const T* __restrict__ b,
                                          T* __restrict__ y, int R, const Map& map) {
   const int N = w.cols(), n0 = blockIdx.x * BN;
-  map.for_each_chunk(rows_s, list, [&](int e) {
+  map.template for_each_chunk<BM, THREADS>(rows_s, list, [&](int e, int) {
     float acc[ROWS_PER_THREAD] = {0.f};
     if (e >= 0) {
       w.rows_dot(s, acc, x, rows_s, e, n0);
@@ -391,23 +421,182 @@ moe_spmm_kernel(const T* __restrict__ x, W w, const T* __restrict__ u,
   }
 }
 
+// bf16 NF4 bitmap experts on the tensor cores (expert_mma.cuh), both
+// maps: the same two launches as above, with 64-column blocks and up to
+// 64 rows a chunk.
+using NF4Experts = BitmapExperts<__nv_bfloat16, salr::NF4Values<__nv_bfloat16>>;
+namespace sk = salr::splitk;
+
+struct MmaUShared {
+  sk::XRing xs;
+  sk::WTile raw[sk::STAGES];  // A_cat[e]'s slabs, multiplied in place
+};
+
+struct MmaShared {
+  sk::XRing xs;
+  union {
+    sk::NF4Cells cells[sk::STAGES];  // the base walk's cells
+    sk::WTile dense[sk::STAGES];     // the adapter walk's B_cat[e] slabs
+  } raw;
+  sk::WTile w;  // a step's decoded cells
+  float lut[16];
+};
+
+// acc = the chunk's x rows @ one column tile of a weight, over all K: one
+// walk, one slice, from a zeroed accumulator.
+template <class Tile, class XL>
+__device__ __forceinline__ void chunk_product(sk::XRing& xs, typename Tile::Raw* raw,
+                                              sk::WTile& w, const Tile& tile, const XL& xl, int K,
+                                              float acc[sk::WN / 8][4]) {
+  sk::walk(xs, raw, w, tile, xl, K, 0, K, (K + sk::BK - 1) / sk::BK * sk::BK,
+           [&](int, float(*p)[4]) {
+#pragma unroll
+             for (int j = 0; j < sk::WN / 8; ++j)
+#pragma unroll
+               for (int q = 0; q < 4; ++q) acc[j][q] = p[j][q];
+           });
+}
+
+// Whether the chunk's x rows are all zero bits.  group_assignments pads
+// the grouped rows to a static bound, and its slack tiles (past every
+// expert's rows, their expert clamped to E - 1) hold zero x: their rows
+// come out exactly +0 (zero products from zeroed accumulators, u = +0), so
+// the walks are skipped and zeros stored, the same bits.  A real tile's
+// first row is a real token's, whose first nonzero entry ends the check.
+template <class Map, bool FAST>
+__device__ __forceinline__ bool zero_chunk_rows(const sk::bf16* __restrict__ x, const int* rows,
+                                                int n, int K) {
+  if constexpr (!Map::kSlack) {
+    return false;
+  } else {
+    // FAST: a row is K / 8 16-byte chunks; else K 2-byte entries
+    using V = std::conditional_t<FAST, uint4, uint16_t>;
+    const int q = FAST ? K / 8 : K;
+    const V* xv = reinterpret_cast<const V*>(x);
+    auto nonzero_at = [&](int r, int c) {
+      const V v = xv[(size_t)rows[r] * q + c];
+      if constexpr (FAST) return (v.x | v.y | v.z | v.w) != 0u;
+      else return v != 0;
+    };
+    bool nonzero = false;
+    for (int c = threadIdx.x; c < q; c += sk::THREADS) nonzero |= nonzero_at(0, c);
+    if (__syncthreads_or(nonzero)) return false;
+    for (int r = threadIdx.x / 32; r < n; r += sk::THREADS / 32)
+      for (int c = threadIdx.x % 32; c < q; c += 32) nonzero |= nonzero_at(r, c);
+    return !__syncthreads_or(nonzero);
+  }
+}
+
+// First launch: u[r, r0:r0+64] = x[r] @ A_cat[e(r)][:, r0:r0+64], rounded
+// once to bf16; grid (ceil(R/64), the map's y).  W only names the op in
+// profiles.
+template <class W, class Map, bool FAST>
+__global__ void __launch_bounds__(sk::THREADS, sk::MIN_BLOCKS)
+moe_mma_u_kernel(const sk::bf16* __restrict__ x, const sk::bf16* __restrict__ a,
+                 sk::bf16* __restrict__ u, int K, int R, Map map) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<MmaUShared*>(smem);
+  __shared__ int rows_s[sk::BM];
+  __shared__ int list[WINDOW];
+  map.template for_each_chunk<sk::BM, sk::THREADS>(rows_s, list, [&](int e, int n) {
+    if (e < 0 || zero_chunk_rows<Map, FAST>(x, rows_s, n, K)) return;  // u unread there
+    const sk::DenseTile<FAST> tile(a + (size_t)e * K * R, R, blockIdx.x);
+    float acc[sk::WN / 8][4];
+    // the decode buffer argument is unread: a DenseTile's stage is its tile
+    chunk_product(s.xs, s.raw, s.raw[0], tile, sk::GatherX<FAST>{x, rows_s, K, n}, K, acc);
+    sk::for_each_out(acc, 0, n, tile.width, [&](int row, int col, float v) {
+      u[(size_t)rows_s[row] * R + tile.n0 + col] = __float2bfloat16(v);
+    });
+  });
+}
+
+// Second launch: y[rows, 64 columns] for each chunk of expert e's rows:
+// the base's product and then u @ B_cat[e], each from a zeroed
+// accumulator, added in f32 and rounded once (zeros for e = -1); grid
+// (ceil(cols/64), the map's y).
+template <class W, class Map, bool FAST>
+__global__ void __launch_bounds__(sk::THREADS, sk::MIN_BLOCKS)
+moe_mma_spmm_kernel(const sk::bf16* __restrict__ x, W w, const sk::bf16* __restrict__ u,
+                    const sk::bf16* __restrict__ b, sk::bf16* __restrict__ y, int R, Map map) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<MmaShared*>(smem);
+  __shared__ int rows_s[sk::BM];
+  __shared__ int list[WINDOW];
+  salr::load_nf4_table(s.lut);  // read after the map's first barrier
+  const int N = w.cols(), n0 = blockIdx.x * sk::BN, width = min(sk::BN, N - n0);
+  const size_t cells = (size_t)w.K * w.n_tiles;
+  map.template for_each_chunk<sk::BM, sk::THREADS>(rows_s, list, [&](int e, int n) {
+    float acc[sk::WN / 8][4] = {};
+    if (e >= 0 && !zero_chunk_rows<Map, FAST>(x, rows_s, n, w.K)) {
+      const sk::NF4CellTile<FAST> tile(w.words + e * cells * w.wpt,
+                                       w.vals.codes + e * cells * (w.cap_t / 2),
+                                       w.vals.scales + e * cells, s.lut, w.n_tiles, w.wpt,
+                                       w.cap_t, blockIdx.x);
+      chunk_product(s.xs, s.raw.cells, s.w, tile, sk::GatherX<FAST>{x, rows_s, w.K, n}, w.K,
+                    acc);
+      if (R > 0) {
+        __syncthreads();  // every warp is done with the base walk's stages
+        const sk::DenseTile<FAST> bt(b + (size_t)e * R * N, N, blockIdx.x);
+        float delta[sk::WN / 8][4];
+        chunk_product(s.xs, s.raw.dense, s.w, bt, sk::GatherX<FAST>{u, rows_s, R, n}, R,
+                      delta);
+#pragma unroll
+        for (int j = 0; j < sk::WN / 8; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[j][q] += delta[j][q];
+      }
+    }
+    sk::for_each_out(acc, 0, n, width, [&](int row, int col, float v) {
+      y[(size_t)rows_s[row] * N + n0 + col] = __float2bfloat16(v);
+    });
+  });
+}
+
+template <bool FAST, typename Map>
+int launch_nf4_mma(const void* x, const NF4Experts& w, const void* a, const void* b, void* u,
+                   void* y, const Map& map, int grid_y, int u_grid_y, int K, int R,
+                   cudaStream_t stream) {
+  const auto* xb = static_cast<const sk::bf16*>(x);
+  if (R > 0) {
+    const cudaError_t err =
+        sk::launch_with_smem<moe_mma_u_kernel<NF4Experts, Map, FAST>, MmaUShared>(
+            dim3((R + sk::BN - 1) / sk::BN, u_grid_y), stream, xb,
+            static_cast<const sk::bf16*>(a), static_cast<sk::bf16*>(u), K, R, map);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(
+      sk::launch_with_smem<moe_mma_spmm_kernel<NF4Experts, Map, FAST>, MmaShared>(
+          dim3((w.cols() + sk::BN - 1) / sk::BN, grid_y), stream, xb, w,
+          static_cast<const sk::bf16*>(u), static_cast<const sk::bf16*>(b),
+          static_cast<sk::bf16*>(y), R, map));
+}
+
 // grid_y / u_grid_y: the map's y extent for the two launches (a tile
 // count for TileMap; E + 1 and E for RowMap).
 template <typename T, typename W, typename Map>
 int launch(const void* x, const W& w, const void* a, const void* b, void* u, void* y,
            const Map& map, int grid_y, int u_grid_y, int K, int R, cudaStream_t stream) {
-  if (R > 0) {  // a rank-0 stack has no adapter term
-    dim3 grid_u((R + BN - 1) / BN, u_grid_y);
-    moe_adapter_u_kernel<T, W, Map><<<grid_u, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), K, R, map);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (std::is_same_v<W, NF4Experts>) {
+    // FAST: 16-byte copies of x, u, the cells and the adapters' rows
+    if (sk::x_vec(x, K) && R % 8 == 0 && w.wpt % 4 == 0 && w.cap_t % 32 == 0 &&
+        sk::aligned16(w.words) && sk::aligned16(w.vals.codes) &&
+        (R == 0 || (sk::aligned16(a) && sk::aligned16(b) && sk::aligned16(u))))
+      return launch_nf4_mma<true>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
+    return launch_nf4_mma<false>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
+  } else {
+    if (R > 0) {  // a rank-0 stack has no adapter term
+      dim3 grid_u((R + BN - 1) / BN, u_grid_y);
+      moe_adapter_u_kernel<T, W, Map><<<grid_u, THREADS, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), K, R, map);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    dim3 grid((w.cols() + BN - 1) / BN, grid_y);
+    moe_spmm_kernel<T, W, Map><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), w, static_cast<const T*>(u), static_cast<const T*>(b),
+        static_cast<T*>(y), R, map);
+    return static_cast<int>(cudaGetLastError());
   }
-  dim3 grid((w.cols() + BN - 1) / BN, grid_y);
-  moe_spmm_kernel<T, W, Map><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), w, static_cast<const T*>(u), static_cast<const T*>(b),
-      static_cast<T*>(y), R, map);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>

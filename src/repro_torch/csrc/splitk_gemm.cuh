@@ -31,9 +31,16 @@
 // k16 steps, slices and sum order in both dispatches and at every M, so its
 // bits do not depend on the batch it came in (the engine decodes at M =
 // n_slots, greedy_generate at M = batch; their token parity rests on it).
+//
+// The walk is shared beyond nm_spmm and nf4_spmm: a tile whose stage is
+// itself a bf16 WTile (DenseTile: a dense weight's rows, copied with no
+// decode) is multiplied straight from its stage (fused_lora.cu), and x's
+// rows come from a loader: RowsX (a block's contiguous rows) here,
+// GatherX (rows named by a list) in expert_mma.cuh.
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -150,11 +157,13 @@ struct Chunk {
   }
 };
 
+__host__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // Whether x's copies can all be 16-byte ones (x 16-byte aligned, rows of
 // K bf16 a multiple of 16 bytes).
-__host__ inline bool x_vec(const void* x, int K) {
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 8 == 0;
-}
+__host__ inline bool x_vec(const void* x, int K) { return aligned16(x) && K % 8 == 0; }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -189,69 +198,137 @@ __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsign
 __device__ __forceinline__ int warp_row0() { return 16 * ((threadIdx.x >> 5) & 3); }
 __device__ __forceinline__ int warp_col0() { return WN * (threadIdx.x >> 7); }
 
-// acc[j] += the warp's 16 rows of x @ its columns [8j, 8j + 8), over the
-// stage's BK rows, k16 step by k16 step.  acc[j]: rows g and g + 8 (g =
-// lane / 4), columns 2t and 2t + 1 (t = lane % 4) of the warp's n-tile j.
-__device__ __forceinline__ void mma_stage(const uint16_t (*x)[XLD], const WTile& w,
-                                          float acc[WN / 8][4]) {
+// acc[j] += the warp's 16 rows of a (columns [kk, kk + 16)) @ rows [kk, kk
+// + 16) of b at its columns [8j, 8j + 8): one k16 step.  a: bf16 rows of
+// pitch LDA (the block's BM rows), b: bf16 rows of pitch WLD (BN columns).
+// acc[j]: rows g and g + 8 (g = lane / 4), columns 2t and 2t + 1 (t = lane
+// % 4) of the warp's n-tile j.
+template <int LDA>
+__device__ __forceinline__ void mma_k16(const uint16_t (*a)[LDA], const uint16_t (*b)[WLD],
+                                        int kk, float acc[WN / 8][4]) {
   const int lane = threadIdx.x & 31;
   const int row = warp_row0() + (lane & 15), col = warp_col0() + 8 * (lane >> 4);
+  unsigned af[4];
+  ldmatrix_x4(af, &a[row][kk + 8 * (lane >> 4)]);
 #pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    unsigned a[4];
-    ldmatrix_x4(a, &x[row][kk + 8 * (lane >> 4)]);
-#pragma unroll
-    for (int p = 0; p < WN / 16; ++p) {
-      unsigned b[4];
-      ldmatrix_x4_trans(b, &w.v[kk + (lane & 15)][col + 16 * p]);
-      mma_bf16(acc[2 * p], a, b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
-    }
+  for (int p = 0; p < WN / 16; ++p) {
+    unsigned bf[4];
+    ldmatrix_x4_trans(bf, &b[kk + (lane & 15)][col + 16 * p]);
+    mma_bf16(acc[2 * p], af, bf[0], bf[1]);
+    mma_bf16(acc[2 * p + 1], af, bf[2], bf[3]);
   }
 }
 
-// Walk K rows [k_begin, k_end) of the tile for the block's rows [m0, m0 +
-// BM); at the end of every slice (a multiple of slice_k, or k_end) call
+// acc += the warp's 16 rows of x @ its columns, over the stage's BK rows,
+// k16 step by k16 step.
+__device__ __forceinline__ void mma_stage(const uint16_t (*x)[XLD], const WTile& w,
+                                          float acc[WN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) mma_k16<XLD>(x, w.v, kk, acc);
+}
+
+// x's rows [m0, m0 + BM) of a row-major (M, K) bf16 x for a walk (rows past
+// M zero).  FAST: x 16-byte aligned with rows of a multiple of 16 bytes, so
+// a thread copies one fixed 16-byte chunk a step.
+template <bool FAST>
+struct RowsX {
+  const bf16* __restrict__ x;
+  int K, m0, rows;  // rows: those of the block inside M
+  Chunk<16> xc;     // FAST
+  __device__ RowsX(const bf16* x_, int M, int K_, int m0_)
+      : x(x_), K(K_), m0(m0_), rows(min(BM, M - m0_)) {
+    if constexpr (FAST) xc = Chunk<16>(rows, BK * 2);
+  }
+  __device__ __forceinline__ int count() const { return rows; }
+  // x rows past M, up to the last 16-row band in use, zero in every stage
+  // (the copies never write them); the walk's first barrier orders it
+  __device__ __forceinline__ void prepare(XRing& xs) const {
+    const int pad_end = min(BM, (rows + 15) / 16 * 16);
+    for (int i = threadIdx.x; i < STAGES * (pad_end - rows) * (XLD / 8); i += THREADS) {
+      const int st = i / ((pad_end - rows) * (XLD / 8)), rem = i % ((pad_end - rows) * (XLD / 8));
+      *reinterpret_cast<uint4*>(&xs.v[st][rows + rem / (XLD / 8)][8 * (rem % (XLD / 8))]) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // cp.async columns [k0, k0 + kn) of the rows into a stage, zero past kn.
+  __device__ __forceinline__ void load(uint16_t (*dst)[XLD], int k0, int kn) const {
+    const bf16* src = x + static_cast<size_t>(m0) * K + k0;
+    const size_t stride = static_cast<size_t>(K) * 2;
+    if constexpr (FAST) xc.copy(dst, XLD * 2, src, stride, rows, kn * 2);
+    else copy_rows(dst, XLD * 2, src, stride, rows, BK * 2, kn * 2);
+  }
+};
+
+// Column tile `tile` (BN columns from n0) of a dense row-major (K, ld) bf16
+// weight: a step's rows are copied with cp.async straight into a bf16
+// stage, which the walk multiplies with no decode (Raw is a WTile); zero
+// past the weight's columns and past K.  FAST: the weight 16-byte aligned
+// and ld a multiple of 8, so a thread copies one fixed 16-byte chunk a
+// step.
+template <bool FAST>
+struct DenseTile {
+  using Raw = WTile;
+  const bf16* __restrict__ w;
+  int ld, n0, width;  // width: the tile's columns inside ld
+  __device__ DenseTile(const bf16* w_, int ld_, int tile)
+      : w(w_), ld(ld_), n0(tile * BN), width(min(BN, ld_ - tile * BN)) {}
+  __device__ __forceinline__ void load(Raw& r, int k0, int kn) const {
+    const char* src = reinterpret_cast<const char*>(w + static_cast<size_t>(k0) * ld + n0);
+    const size_t stride = static_cast<size_t>(ld) * 2;
+    if constexpr (FAST) {
+      static_assert(BK * BN * 2 / 16 == THREADS, "one 16-byte chunk a thread");
+      const int row = threadIdx.x / (BN / 8), c = (threadIdx.x % (BN / 8)) * 16;
+      char* d = reinterpret_cast<char*>(r.v[row]) + c;
+      if (row < kn && c < width * 2) copy_chunk<16>(d, src + row * stride + c);
+      else zero_chunk<16>(d);
+    } else {
+      copy_rows(r.v, WLD * 2, src, stride, kn, BN * 2, width * 2);
+      for (int i = threadIdx.x; i < (BK - kn) * (WLD / 8); i += THREADS)
+        *reinterpret_cast<uint4*>(&r.v[kn + i / (WLD / 8)][8 * (i % (WLD / 8))]) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+};
+
+// Walk K rows [k_begin, k_end) of the tile for the rows of x's loader
+// (xl: count() rows, prepare(xs) once, load(stage, k0, kn) per step); at
+// the end of every slice (a multiple of slice_k, or k_end) call
 // flush(slice, acc) with the slice's f32 partial, then restart acc at zero.
 // At least one step runs, so an empty range flushes zeros.  While a step is
-// decoded and multiplied, the copies of the next three are in flight.
-template <bool FAST, class Tile, class Flush>
+// decoded and multiplied, the copies of the next three are in flight.  A
+// tile whose Raw stage is a WTile is multiplied from its stage as it
+// landed.  The walk leaves with no copy in flight but without a closing
+// barrier: a second walk in the same block needs a __syncthreads first.
+template <class Tile, class XL, class Flush>
 __device__ __forceinline__ void walk(XRing& xs, typename Tile::Raw* raw, WTile& w,
-                                     const Tile& tile, const bf16* __restrict__ x, int M, int K,
-                                     int m0, int k_begin, int k_end, int slice_k, Flush flush) {
-  const bool active = m0 + warp_row0() < M;
-  const int rows = min(BM, M - m0);
+                                     const Tile& tile, const XL& xl, int K, int k_begin,
+                                     int k_end, int slice_k, Flush flush) {
+  constexpr bool direct = std::is_same_v<typename Tile::Raw, WTile>;
+  const bool active = warp_row0() < xl.count();
   const int steps = max(1, (k_end - k_begin + BK - 1) / BK);
-  const Chunk<16> xc = FAST ? Chunk<16>(rows, BK * 2) : Chunk<16>();
   auto kn_of = [&](int i) { return max(0, min(BK, K - (k_begin + i * BK))); };
   auto load_step = [&](int i) {  // step i into stage i % STAGES; a group per call
     if (i < steps) {
-      const bf16* src = x + static_cast<size_t>(m0) * K + k_begin + i * BK;
-      const size_t stride = static_cast<size_t>(K) * 2;
-      if constexpr (FAST) xc.copy(xs.v[i % STAGES], XLD * 2, src, stride, rows, kn_of(i) * 2);
-      else copy_rows(xs.v[i % STAGES], XLD * 2, src, stride, rows, BK * 2, kn_of(i) * 2);
+      xl.load(xs.v[i % STAGES], k_begin + i * BK, kn_of(i));
       tile.load(raw[i % STAGES], k_begin + i * BK, kn_of(i));
     }
     cp_async_commit();
   };
   for (int i = 0; i < STAGES - 1; ++i) load_step(i);
-  // x rows past M, up to the last 16-row band in use, are zero in every
-  // stage (the copies never write them); the loop's first barrier orders it
-  const int pad_end = min(BM, (rows + 15) / 16 * 16);
-  for (int i = threadIdx.x; i < STAGES * (pad_end - rows) * (XLD / 8); i += THREADS) {
-    const int st = i / ((pad_end - rows) * (XLD / 8)), rem = i % ((pad_end - rows) * (XLD / 8));
-    *reinterpret_cast<uint4*>(&xs.v[st][rows + rem / (XLD / 8)][8 * (rem % (XLD / 8))]) =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
+  xl.prepare(xs);
   float acc[WN / 8][4] = {};
   int slice = k_begin / slice_k, slice_end = min(k_end, (slice + 1) * slice_k);
   for (int i = 0; i < steps; ++i) {
     cp_async_wait<STAGES - 2>();  // step i has landed
     __syncthreads();              // ... for every thread; step i - 1 is consumed
     load_step(i + STAGES - 1);    // into the stage step i - 1 used
-    tile.decode(raw[i % STAGES], kn_of(i), w);
-    __syncthreads();
-    if (active) mma_stage(xs.v[i % STAGES], w, acc);
+    if constexpr (direct) {
+      if (active) mma_stage(xs.v[i % STAGES], raw[i % STAGES], acc);
+    } else {
+      tile.decode(raw[i % STAGES], kn_of(i), w);
+      __syncthreads();
+      if (active) mma_stage(xs.v[i % STAGES], w, acc);
+    }
     if (k_begin + (i + 1) * BK >= slice_end) {
       flush(slice, acc);
 #pragma unroll
@@ -290,7 +367,7 @@ __device__ __forceinline__ void slices_block(XRing& xs, typename Tile::Raw* raw,
   const int m0 = blockIdx.y * BM, s = blockIdx.z;
   const int k_begin = s * slice_k, k_end = min(K, k_begin + slice_k);
   float* part = ws + static_cast<size_t>(s) * M * N + tile.n0;
-  walk<FAST>(xs, raw, w, tile, x, M, K, m0, k_begin, k_end, slice_k,
+  walk(xs, raw, w, tile, RowsX<FAST>(x, M, K, m0), K, k_begin, k_end, slice_k,
        [&](int, float(*acc)[4]) {
          for_each_out(acc, m0, M, tile.width,
                       [&](int row, int col, float v) { part[static_cast<size_t>(row) * N + col] = v; });
@@ -306,7 +383,7 @@ __device__ __forceinline__ void rows_block(XRing& xs, typename Tile::Raw* raw, W
                                            int slice_k) {
   const int m0 = blockIdx.y * BM;
   float total[WN / 8][4] = {};
-  walk<FAST>(xs, raw, w, tile, x, M, K, m0, 0, K, slice_k, [&](int s, float(*acc)[4]) {
+  walk(xs, raw, w, tile, RowsX<FAST>(x, M, K, m0), K, 0, K, slice_k, [&](int s, float(*acc)[4]) {
 #pragma unroll
     for (int j = 0; j < WN / 8; ++j)
 #pragma unroll

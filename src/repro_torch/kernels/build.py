@@ -23,9 +23,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-# The split-K kernels' tile (csrc/splitk_gemm.cuh): columns per block and
-# K rows per pipeline step, the unit of a slice.  The kernels are compiled
-# with them; ops.splitk_plan and ops._splitk_args cut K by them.
+# The split-K kernels' tile (csrc/splitk_gemm.cuh, also under fused_lora
+# and the NF4 expert body): columns per block and K rows per pipeline step,
+# the unit of a slice.  The kernels are compiled with them; ops.splitk_plan,
+# ops._splitk_args and ops.lora_plan cut K by them.
 SPLITK_BN, SPLITK_BK = 64, 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,7 +44,7 @@ KERNELS = {
     "paged_quant_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
     "paged_nf4_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
     "nm_spmm": ("nm_spmm.cu", [_P] * 5 + [_I] * 9 + [_P]),
-    "fused_lora": ("fused_lora.cu", [_P] * 4 + [_I] * 6 + [_P]),
+    "fused_lora": ("fused_lora.cu", [_P] * 5 + [_I] * 8 + [_P]),
     "nf4_spmm": ("nf4_spmm.cu", [_P] * 5 + [_I] * 7 + [_P]),
     "grouped_salr_spmm": ("grouped_spmm.cu", [_P] * 8 + [_I] * 10 + [_P]),
     "grouped_qsalr_spmm": ("grouped_spmm.cu", [_P] * 9 + [_I] * 10 + [_P]),

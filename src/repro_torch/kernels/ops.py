@@ -263,12 +263,28 @@ def nm_matmul(x: torch.Tensor, nmw: bm.NMWeight) -> torch.Tensor:
 
 # the largest adapter rank the fused_lora kernel keeps on chip
 LORA_MAX_RANK = 256
+# the most slices fused_lora cuts u = x @ A_cat's K into: each of its
+# output blocks sums every slice of its rows, so more slices cost more
+# there than they save in the u pass (the spmm_ab.py sweep of M = 4 to 1024
+# on an H100, PERF.md)
+LORA_SLICES = 8
+
+
+def lora_plan(k: int) -> tuple:
+    """(slices, slice_k) of the bf16 fused_lora kernel: K cut into at most
+    ``LORA_SLICES`` slices of whole pipeline steps (build.SPLITK_BK rows,
+    the last ending at K).  A function of K alone, never of M."""
+    steps = max(1, -(-k // build.SPLITK_BK))
+    per = -(-steps // LORA_SLICES)
+    return -(-steps // per), per * build.SPLITK_BK
 
 
 def lora_matmul(x: torch.Tensor, a_cat: torch.Tensor, b_cat: torch.Tensor) -> torch.Tensor:
-    """y = (x @ A_cat) @ B_cat, u = x @ A_cat kept on chip and rounded to
-    B_cat's dtype.  x: (..., K); a_cat (K, R), b_cat (R, N) with R > 0;
-    returns (..., N)."""
+    """y = (x @ A_cat) @ B_cat, u = x @ A_cat rounded to B_cat's dtype.
+    x: (..., K); a_cat (K, R), b_cat (R, N) with R > 0; returns (..., N).
+    bf16 splits u's K by :func:`lora_plan`, the slices' f32 partials in a
+    (slices, M, R) workspace that the output pass sums in slice order; f32
+    takes the column GEMM, with no plan."""
     name = "fused_lora"
     _forward_only(name, x, a_cat, b_cat)
     x2, lead = _flatten(x)
@@ -290,8 +306,13 @@ def lora_matmul(x: torch.Tensor, a_cat: torch.Tensor, b_cat: torch.Tensor) -> to
         m = x2.shape[0]
         y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
         if m:
+            ws, slices, slice_k = None, 0, 0
+            if x2.dtype == torch.bfloat16:
+                slices, slice_k = lora_plan(k)
+                ws = torch.empty((slices, m, r), dtype=torch.float32, device=x2.device)
             _launch(name, x2.device, x2.data_ptr(), a_cat.data_ptr(), b_cat.data_ptr(),
-                    y.data_ptr(), m, k, r, n, code)
+                    y.data_ptr(), None if ws is None else ws.data_ptr(), m, k, r, n,
+                    slices, slice_k, code)
     return y.reshape(*lead, n)
 
 
@@ -583,7 +604,8 @@ def _moe_matmul(name: str, x: torch.Tensor, emap: torch.Tensor, stack, a_cat, b_
     m, kdim = x2.shape
     if block_m <= 0:
         raise ValueError(f"{name}: block_m {block_m} must be positive")
-    x2 = torch.nn.functional.pad(x2, (0, 0, 0, (-m) % block_m))
+    if m % block_m:
+        x2 = torch.nn.functional.pad(x2, (0, 0, 0, block_m - m % block_m))
     mp = x2.shape[0]
     if emap.dtype != torch.int32:
         raise TypeError(f"{name}: the row map must be int32")
@@ -594,12 +616,15 @@ def _moe_matmul(name: str, x: torch.Tensor, emap: torch.Tensor, stack, a_cat, b_
         if emap.ndim != 1 or emap.shape[0] > mp:
             raise ValueError(f"{name}: row_expert {tuple(emap.shape)} has more rows "
                              f"than x ({mp})")
-        emap = torch.nn.functional.pad(emap, (0, mp - emap.shape[0]), value=-1)
+        if emap.shape[0] < mp:
+            emap = torch.nn.functional.pad(emap, (0, mp - emap.shape[0]), value=-1)
     emap = emap.contiguous()
     if a_cat is None or a_cat.shape[-1] == 0:
         a_cat = b_cat = None
     else:
-        b_cat = torch.nn.functional.pad(b_cat, (0, cols - b_cat.shape[-1]))
+        # padded (a copy) only where the encoded width exceeds B_cat's
+        b_cat = (torch.nn.functional.pad(b_cat, (0, cols - b_cat.shape[-1]))
+                 if b_cat.shape[-1] < cols else b_cat.contiguous())
         if (a_cat.shape[:2] != (n_exp, kdim)
                 or b_cat.shape != (n_exp, a_cat.shape[-1], cols)):
             raise ValueError(f"{name}: adapter shapes {tuple(a_cat.shape)} / "

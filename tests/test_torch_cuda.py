@@ -294,6 +294,46 @@ def test_splitk_kernels_hold_under_any_plan(cuda, k, n, sms, monkeypatch):
             _rows_independent(fn, x, y)
 
 
+
+@pytest.mark.parametrize("k,r,n", [(1536, 128, 576), (576, 128, 576), (100, 24, 200),
+                                   (64, 256, 72)])
+def test_fused_lora_rows_bitwise_across_m(cuda, k, r, n):
+    """bf16 fused_lora: rows computed at M = 1, 4, 8, 33, 100 equal the same
+    rows at M = 1024 bit for bit, and two calls agree (ragged K, R and N
+    included)."""
+    gen = torch.Generator(device=cuda).manual_seed(k + r + n)
+    a = (torch.randn((k, r), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((r, n), generator=gen, device=cuda) / r ** 0.5).to(torch.bfloat16)
+    x = torch.randn((1024, k), generator=gen, device=cuda).to(torch.bfloat16)
+    fn = lambda xs: ops.lora_matmul(xs, a, b)  # noqa: E731
+    y = fn(x)
+    assert _close(y, ref.fused_lora_ref(x, a, b), torch.bfloat16)
+    for m in _ROWS:
+        torch.testing.assert_close(fn(x[:m]), y[:m], rtol=0, atol=0)
+    _deterministic(fn, x, y)
+
+
+@pytest.mark.parametrize("plan", ["one slice", "one step a slice"])
+@pytest.mark.parametrize("k,r,n", [(1536, 128, 576), (100, 24, 200)])
+def test_fused_lora_holds_under_any_plan(cuda, k, r, n, plan, monkeypatch):
+    """bf16 fused_lora with all of K in one slice, then with every 32-row
+    step a slice (48 at K = 1536): it matches its plain version at every M
+    and its rows are independent of M."""
+    from repro_torch.kernels import build
+    gen = torch.Generator(device=cuda).manual_seed(k + len(plan))
+    a = (torch.randn((k, r), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((r, n), generator=gen, device=cuda) / r ** 0.5).to(torch.bfloat16)
+    steps = -(-k // build.SPLITK_BK)
+    forced = (1, steps * build.SPLITK_BK) if plan == "one slice" else (steps, build.SPLITK_BK)
+    monkeypatch.setattr(ops, "lora_plan", lambda k: forced)
+    fn = lambda xs: ops.lora_matmul(xs, a, b)  # noqa: E731
+    for m in _SPLITK_ROWS:
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        y = fn(x)
+        assert _close(y, ref.fused_lora_ref(x, a, b), torch.bfloat16)
+        _rows_independent(fn, x, y)
+
+
 def test_wrappers_launch_and_count(cuda):
     w = torch.randn((64, 64), device=cuda)
     mask = prune.magnitude_mask(w, 0.5)
@@ -429,6 +469,34 @@ def test_expert_kernels_pad_rows_and_planted_faults(cuda, dtype):
                 assert not _close(ref.grouped_dense_spmm_ref(xs, g.tile_expert, late, a, b,
                                                              g.block_m), y_ref, dtype)
 
+
+
+@pytest.mark.parametrize("tile,cap_t", [(96, 72), (32, 24), (256, 160)])
+def test_qsalr_expert_kernels_any_tile(cuda, tile, cap_t):
+    """bf16 grouped_ and decode_qsalr_spmm on stacks whose 64-column blocks
+    straddle two column tiles (tile 96: three words a tile), hold one word
+    (tile 32) or lie in one (256), at 8 and 128 tokens: each matches its
+    plain version and the two routes are bitwise equal per row."""
+    gen = torch.Generator(device=cuda).manual_seed(tile)
+    n_exp, k, n, r = 8, 96, 2 * tile, 16
+    w = torch.randn((n_exp * k, n), generator=gen, device=cuda) / k ** 0.5
+    mask = prune.magnitude_mask(w, 0.5)
+    flat, _ = tbm.tile_encode(prune.apply_mask(w, mask).to(torch.bfloat16), mask, tile, cap_t)
+    tbw = tbm.TiledBitmapWeight(words=flat.words.reshape(n_exp, k, *flat.words.shape[1:]),
+                                values=flat.values.reshape(n_exp, k, *flat.values.shape[1:]),
+                                cols=n, tile=tile, cap_t=cap_t)
+    q, _ = tbm.tile_quantize_nf4(tbw)
+    a = (torch.randn((n_exp, k, r), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((n_exp, r, n), generator=gen, device=cuda) / r ** 0.5).to(torch.bfloat16)
+    for n_tok in (8, 128):
+        x = (torch.randn((n_tok, k), generator=gen, device=cuda) / 4).to(torch.bfloat16)
+        _, g, xs, xd, row_e = _expert_rows(gen, cuda, x, n_exp, 2)
+        yg = ops.grouped_qsalr_matmul(xs, g.tile_expert, q, a, b, block_m=g.block_m)
+        yd = ops.decode_qsalr_matmul(xd, row_e, q, a, b)
+        assert _close(yg, ref.grouped_qsalr_spmm_ref(xs, g.tile_expert, q, a, b, g.block_m),
+                      torch.bfloat16)
+        assert _close(yd, ref.decode_qsalr_spmm_ref(xd, row_e, q, a, b), torch.bfloat16)
+        assert torch.equal(yg[g.dst[g.inv]], yd)
 
 def _nm_inclusive(nmw, e: int) -> torch.Tensor:
     """Expert e of an N:M stack decoded with each set bit's value read at

@@ -1,9 +1,10 @@
-"""The split plan of the bf16 ``nm_spmm`` and ``nf4_spmm`` kernels, on the
-CPU: the slices cover [0, K) in order at every shape the GPU tests and
-``chip_smoke.py`` give the kernels, and the plan the wrappers pass to the
-kernel depends on (K, N) and the card alone, never on M (a row's bits at M
-= 1 and M = 1024 rest on it).  The launch is intercepted; no kernel runs
-here."""
+"""The split plan of the bf16 ``nm_spmm``, ``nf4_spmm`` and ``fused_lora``
+kernels, on the CPU: the slices cover [0, K) in order at every shape the
+GPU tests and ``chip_smoke.py`` give the kernels, and the plan the wrappers
+pass to the kernel depends on (K, N) and the card (``fused_lora``: on K)
+alone, never on M (a row's bits at M = 1 and M = 1024 rest on it); the NF4
+expert kernels take no plan at all.  The launch is intercepted; no kernel
+runs here."""
 import pytest
 import torch
 
@@ -95,3 +96,97 @@ def test_f32_takes_no_plan(monkeypatch):
     monkeypatch.setattr(ops, "_launch", lambda name, device, *args: seen.append(_plan_args(args)))
     ops.nm_matmul(torch.randn((4, 64)), nmw)
     assert seen == [(None, 0, 0)]
+
+
+# (K, R, N) of every fused_lora call in tests/test_torch_cuda.py and
+# chip_smoke.py phase 2: smollm's wo and down at R = 128, the ragged ones
+LORA_SHAPES = [(576, 128, 576), (1536, 128, 576), (100, 24, 200), (64, 256, 72)]
+
+
+def _lora_launches(monkeypatch, k, r, n, dtype=torch.bfloat16):
+    """(workspace shape, slices, slice_k) of each fused_lora launch at the
+    M of ``ROWS``: x, A_cat, B_cat, y and the workspace come before M, K, R
+    and N."""
+    seen, shapes = [], []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        if kw.get("dtype") == torch.float32:
+            shapes.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    def record(name, device, *args):
+        assert name == "fused_lora" and args[5:9] == (m, k, r, n)
+        seen.append((shapes.pop() if args[4] is not None else None, *args[9:11]))
+
+    monkeypatch.setattr(ops.torch, "empty", empty)
+    monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
+    monkeypatch.setattr(ops, "_launch", record)
+    gen = torch.Generator().manual_seed(k + r)
+    a = torch.randn((k, r), generator=gen).to(dtype)
+    b = torch.randn((r, n), generator=gen).to(dtype)
+    for m in ROWS:
+        ops.lora_matmul(torch.randn((m, k), generator=gen).to(dtype), a, b)
+    return seen
+
+
+@pytest.mark.parametrize("k", [576, 1536, 1024, 100, 64, 32, 7168])
+def test_lora_plan_covers_k_in_order(k):
+    """At most LORA_SLICES slices of whole pipeline steps cover [0, K) in
+    order, none empty."""
+    slices, slice_k = ops.lora_plan(k)
+    assert 1 <= slices <= ops.LORA_SLICES and slice_k % build.SPLITK_BK == 0
+    bounds = [(s * slice_k, min(k, (s + 1) * slice_k)) for s in range(slices)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi for lo, hi in bounds)
+
+
+@pytest.mark.parametrize("k,r,n", LORA_SHAPES)
+def test_lora_passes_a_plan_of_k_alone(monkeypatch, k, r, n):
+    """u = x @ A_cat is cut by the plan of K at every M, its partials in a
+    (slices, M, R) workspace: no M moves the plan or the dispatch."""
+    seen = _lora_launches(monkeypatch, k, r, n)
+    slices, slice_k = ops.lora_plan(k)
+    assert seen == [((slices, m, r), slices, slice_k) for m in ROWS]
+
+
+def test_lora_f32_takes_no_plan(monkeypatch):
+    """f32 stays on the column GEMM: no workspace and no slices."""
+    assert set(_lora_launches(monkeypatch, 64, 8, 64, torch.float32)) == {(None, 0, 0)}
+
+
+@pytest.mark.parametrize("route", ["grouped", "decode"])
+def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, route):
+    """grouped_ and decode_qsalr_spmm launch with the stack's layout ints
+    (K, R, E, n_tiles, words per tile, cap_t; grouped: block_m) after M and
+    nothing else: no split of K that M, the tile count or an expert's rows
+    could move."""
+    from repro_torch.models import moe
+    n_exp, k, n, r, topk = 4, 64, 512, 16, 2
+    gen = torch.Generator().manual_seed(5)
+    w = torch.randn((n_exp * k, n), generator=gen)
+    mask = w.abs() > 0.7
+    tbw, _ = tbm.tile_encode(w * mask, mask, 256, 160)
+    tbw = tbm.TiledBitmapWeight(words=tbw.words.reshape(n_exp, k, 2, 8),
+                                values=tbw.values.reshape(n_exp, k, 2, 160),
+                                cols=n, tile=256, cap_t=160)
+    q, _ = tbm.tile_quantize_nf4(tbw)
+    a = torch.randn((n_exp, k, r), generator=gen).to(torch.bfloat16)
+    b = torch.randn((n_exp, r, n), generator=gen).to(torch.bfloat16)
+    seen = []
+    monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
+    monkeypatch.setattr(ops, "_launch", lambda name, device, *args: seen.append(args))
+    for n_tok in (1, 4, 8, 33, 128):
+        x = torch.randn((n_tok, k), generator=gen).to(torch.bfloat16)
+        top_i = torch.rand((n_tok, n_exp), generator=gen).argsort(dim=1)[:, :topk]
+        if route == "decode":
+            xd = x.repeat_interleave(topk, dim=0)
+            ops.decode_qsalr_matmul(xd, top_i.reshape(-1).to(torch.int32), q, a, b)
+            want = (k, r, n_exp, 2, 8, 160, 1)
+        else:
+            g = moe.group_assignments(top_i, n_exp, moe._group_block_m(n_tok * topk, n_exp))
+            xs = x.new_zeros((g.m_pad, k))
+            ops.grouped_qsalr_matmul(xs, g.tile_expert, q, a, b, block_m=g.block_m)
+            want = (k, r, n_exp, 2, 8, 160, g.block_m, 1)
+        # x, words, codes, scales, A_cat, B_cat, u, y, the row map, then M
+        assert seen[-1][10:] == want
