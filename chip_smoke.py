@@ -60,8 +60,9 @@ Phases (any failure exits non-zero before the result line):
    ``grouped_salr_spmm`` and ``decode_salr_spmm`` again at
    deepseek_v3_671b's expert stacks (E 256, top-8, gate/up 7168 -> 2048,
    down 2048 -> 7168, R 128) at 64 assignment rows, grouped and decode
-   bitwise equal per row, and ``salr_spmm`` at its shared expert's
-   projections at 8 rows.  Each is timed (profiler device time, L2
+   bitwise equal per row, with the same two planted faults each, and
+   ``salr_spmm`` at its shared expert's projections at 8 rows.  Each is
+   timed (profiler device time, L2
    flushed before every launch; CUDA events for a function whose every
    trace comes back empty) beside the plain version and, where one
    exists, one library call as a yardstick.
@@ -1089,8 +1090,14 @@ def deepseek_moe_checks(torch, timer, gen, rows: list) -> None:
     step), grouped and decode bitwise equal per row; and ``salr_spmm`` at
     the shared expert's projections (7168 <-> 2048) at the 8-token decode
     batch.  The stacks are tiled bitmaps encoded from seeded weights, the
-    adapters drawn from the seed (no SVD).  Each is timed beside its plain
-    version (bytes bound)."""
+    adapters drawn from the seed (no SVD).  The bf16 limit must reject the
+    planted faults of ``_moe_faults`` (u left unrounded, one expert's rows
+    reading its neighbour expert's weights).  Each is timed beside its
+    plain version (bytes bound) and, for the expert kernels,
+    ``torch.nn.functional.grouped_mm`` over the merged weights W + A_cat
+    B_cat of the experts the rows use (decoded beforehand; rows sorted by
+    expert beforehand); ``bytes_per_s`` is ``_moe_cost``'s bytes over the
+    kernel's time."""
     from repro_torch.core import bitmap as bm
     from repro_torch.core import salr
     from repro_torch.kernels import ops, ref
@@ -1113,6 +1120,7 @@ def deepseek_moe_checks(torch, timer, gen, rows: list) -> None:
         xs = x.new_zeros((g.m_pad, k))
         xs.index_copy_(0, g.dst, x.index_select(0, g.tok))
         xd = x.repeat_interleave(DS_TOPK, dim=0)
+        library = _ds_grouped_mm(torch, st, a, b, xd, row_e)
         outs = {}
         for route, (xr, emap, kw) in {"grouped": (xs, g.tile_expert, {"block_m": g.block_m}),
                                       "decode": (xd, row_e, {})}.items():
@@ -1137,12 +1145,16 @@ def deepseek_moe_checks(torch, timer, gen, rows: list) -> None:
                    "tile": st.tile, "cap_t": st.cap_t, "rel_l2": err,
                    "max_abs_err": (y.float() - y_ref.float()).abs().max().item(),
                    "bytes": nbytes, "flops": flops, "bound_ms": bound, "bound_by": by,
-                   "ms": timer.ms(kern), "plain_ms": plain_timer.ms(plain)}
+                   "ms": timer.ms(kern), "plain_ms": plain_timer.ms(plain),
+                   "library_ms": timer.ms(library) if library else None}
+            row["bytes_per_s"] = nbytes / (row["ms"] * 1e-3)
+            _moe_faults(torch, row, name, route, plain_fn, xr, emap, st, a, b, kw, y_ref,
+                        DS_EXPERTS)
             rows.append(row)
             print(_row_line(row))
         if not torch.equal(outs["grouped"][g.dst[g.inv]], outs["decode"]):
             fail(f"deepseek {lname}: grouped and decode rows differ")
-        del st, a, b
+        del st, a, b, library
         # the shared expert's projection of the same shape: one SALR linear
         w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
         tbw, _ = salr._tiled_encode(w.to(dt), salr.SALRConfig(dtype="bfloat16"))
@@ -1167,6 +1179,25 @@ def deepseek_moe_checks(torch, timer, gen, rows: list) -> None:
         rows.append(row)
         print(_row_line(row))
     print("phase 2: deepseek_v3_671b expert stacks (E 256): grouped == decode bitwise per row")
+
+
+def _ds_grouped_mm(torch, st, a, b, xd, row_e):
+    """The yardstick call at deepseek's expert shapes: ``grouped_mm`` over
+    the decode rows sorted by expert and the merged weights W + A_cat B_cat
+    (f32 sum rounded once, column-major) of only the experts the rows use,
+    one group each; or None (printed)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.kernels import ref
+
+    used = torch.unique(row_e.long())
+    k, n = a.shape[1], b.shape[2]
+    merged = torch.empty((used.numel(), n, k), dtype=xd.dtype, device="cuda").transpose(1, 2)
+    for i, e in enumerate(used.tolist()):
+        merged[i] = (bm.tile_decode(ref._expert(st, e))[:, :n].float()
+                     + a[e].float() @ b[e].float()).to(xd.dtype)
+    order = row_e.long().argsort(stable=True)
+    offs = torch.cumsum(torch.bincount(row_e.long())[used], 0).to(torch.int32)
+    return _grouped_mm_call(torch, xd.index_select(0, order), merged, offs)
 
 
 def _moe_no_adapter(torch, row, name, op, plain_fn, xr, emap, st, kw, dtype_name):

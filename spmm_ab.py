@@ -16,15 +16,22 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
   at M = 8 and 256 to 1024;
 - ``lora``: ``fused_lora`` (R = 128) at smollm_135m's wo and down and
   granite_moe_1b_a400m's wo at M = 4 to 1024;
-- ``experts``: ``grouped_qsalr_spmm`` and ``decode_qsalr_spmm`` at
-  granite_moe_1b_a400m's gate/up and down stacks (E 32, top-8, R = 128)
-  at 8 tokens (64 rows) and 128 tokens (decode: 1024 rows) or 1024
-  tokens (grouped: 8192 rows), and the other three families' grouped and
-  decode kernels (tiled bitmap, masked dense, 2:4) at 8 tokens.
+- ``experts``: the tiled-bitmap expert kernels, plain and NF4
+  (``grouped_salr_spmm``, ``decode_salr_spmm``, ``grouped_qsalr_spmm``,
+  ``decode_qsalr_spmm``), at granite_moe_1b_a400m's gate/up and down
+  stacks (E 32, top-8, R = 128) at 8 tokens (64 rows) and 128 tokens
+  (decode: 1024 rows) or 1024 tokens (grouped: 8192 rows), and the other
+  two families' grouped and decode kernels (masked dense, 2:4) at 8
+  tokens;
+- ``deepseek``: ``grouped_salr_spmm`` and ``decode_salr_spmm`` at
+  deepseek_v3_671b's gate/up and down stacks (E 256, top-8, R = 128,
+  ``chip_smoke._ds_stack``) at 8 tokens (64 rows).
 
-Each split-K call (``splitk``, ``lora``) is also split by the kernels it
-launches.  ``--plan-sms N`` cuts K for ``nm_spmm`` and ``nf4_spmm`` as
-on a card of N SMs (``ops.splitk_plan``) instead of this card's count;
+Each split-K call (``splitk``, ``lora``) and each expert call
+(``experts``, ``deepseek``) is also split by the kernels it launches; an
+expert call also gives its rel-L2 against its plain version.
+``--plan-sms N`` cuts K for ``nm_spmm`` and ``nf4_spmm`` as on a card
+of N SMs (``ops.splitk_plan``) instead of this card's count;
 ``--dispatch`` takes their rows or their slices dispatch at every M
 instead of the one ``ops._splitk_args`` picks.  To compare two
 versions, unpack each into its own directory (``git archive``) and
@@ -44,10 +51,10 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core import bitmap as bm  # noqa: E402
 from repro_torch.core import salr  # noqa: E402
-from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 assert Path(ops.__file__).resolve().is_relative_to(root)
-GROUPS = ("tiled", "splitk", "lora", "experts")
+GROUPS = ("tiled", "splitk", "lora", "experts", "deepseek")
 only = (sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv
         else GROUPS)
 assert set(only) <= set(GROUPS), only
@@ -153,16 +160,50 @@ with torch.inference_mode():
                 xd = x.repeat_interleave(topk, dim=0)
                 row_e = top_i.reshape(-1).to(torch.int32)
                 for kind, st in stacks.items():
-                    if kind != "qsalr" and n_tok != 8:
+                    if kind not in ("salr", "qsalr") and n_tok != 8:
                         continue
                     fns = {"grouped": lambda: getattr(ops, f"grouped_{kind}_matmul")(
                                xs, g.tile_expert, st, a, b, block_m=g.block_m),
                            "decode": lambda: getattr(ops, f"decode_{kind}_matmul")(
                                xd, row_e, st, a, b)}
+                    plain = {"grouped": lambda: getattr(ref, f"grouped_{kind}_spmm_ref")(
+                                 xs, g.tile_expert, st, a, b, g.block_m),
+                             "decode": lambda: getattr(ref, f"decode_{kind}_spmm_ref")(
+                                 xd, row_e, st, a, b)}
                     for route in routes:
                         rows = xs.shape[0] if route == "grouped" else xd.shape[0]
                         key = f"{route}_{kind}_spmm {lname} tokens={n_tok} rows={rows}"
                         out[key] = timer.ms(fns[route])
                         out[f"{key} by kernel"] = ms_by_kernel(fns[route])
+                        out[f"{key} rel_l2"] = cs.rel_l2(torch, fns[route](), plain[route]())
             del stacks, a, b
+    if "deepseek" in only:
+        from repro_torch.models import moe
+        n_exp, topk, n_tok = cs.DS_EXPERTS, cs.DS_TOPK, 8
+        for lname, (k, n) in cs.DS_MOE_SHAPES.items():
+            st = cs._ds_stack(torch, gen, k, n)
+            a = (torch.randn((n_exp, k, 128), generator=gen, device="cuda")
+                 / math.sqrt(k)).bfloat16()
+            b = (torch.randn((n_exp, 128, n), generator=gen, device="cuda")
+                 / math.sqrt(128)).bfloat16()
+            x = (torch.randn((n_tok, k), generator=gen, device="cuda") / 4).bfloat16()
+            top_i = torch.rand((n_tok, n_exp), generator=gen,
+                               device="cuda").argsort(dim=1)[:, :topk]
+            g = moe.group_assignments(top_i, n_exp, moe._group_block_m(n_tok * topk, n_exp))
+            xs = x.new_zeros((g.m_pad, k))
+            xs.index_copy_(0, g.dst, x.index_select(0, g.tok))
+            xd = x.repeat_interleave(topk, dim=0)
+            row_e = top_i.reshape(-1).to(torch.int32)
+            fns = {"grouped": lambda: ops.grouped_salr_matmul(xs, g.tile_expert, st, a, b,
+                                                              block_m=g.block_m),
+                   "decode": lambda: ops.decode_salr_matmul(xd, row_e, st, a, b)}
+            plain = {"grouped": lambda: ref.grouped_salr_spmm_ref(xs, g.tile_expert, st, a, b,
+                                                                  g.block_m),
+                     "decode": lambda: ref.decode_salr_spmm_ref(xd, row_e, st, a, b)}
+            for route, fn in fns.items():
+                key = f"{route}_salr_spmm deepseek {lname} tokens={n_tok}"
+                out[key] = timer.ms(fn)
+                out[f"{key} by kernel"] = ms_by_kernel(fn)
+                out[f"{key} rel_l2"] = cs.rel_l2(torch, fn(), plain[route]())
+            del st, a, b
 print(json.dumps({"tree": sys.argv[2], **out}))

@@ -53,26 +53,31 @@
 // which rows share its block or on M.  No library GEMM computes any part.
 //
 // Two bodies:
-//   - bf16 NF4 bitmap experts (grouped_qsalr_spmm, decode_qsalr_spmm):
-//     the tensor cores (expert_mma.cuh on splitk_gemm.cuh's walk).  A
-//     block owns 64 columns and chunks of up to 64 rows; each 32-row step
-//     of K copies the rows' x and the step's cells (words, codes, scale)
-//     with cp.async through a 4-stage ring (16-byte chunks on the main
-//     path: tile 256, cap_t 160), decodes the cells into a bf16 (32, 64)
-//     tile (__popc prefix slot, the level table in shared memory x the
-//     cell's f32 scale, rounded once to bf16: the reference's rounding)
-//     and runs mma.sync m16n8k16 in m16 row groups, so a decode tile of
-//     block_m 8 leaves 8 of 16 rows idle where the scalar body idled 24 of
-//     32.  u and the adapter term run on the same walk, A_cat[e] and
-//     B_cat[e] slabs copied straight into the bf16 stage.  The grid fills
-//     the card at granite's decode (8 x 33 blocks at gate/up), so K is not
-//     split.  A grouped chunk whose x rows are all zero (group_assignments'
-//     slack tiles, past every expert's rows) skips its walks and stores
-//     the zeros they would give.  It replaced the scalar body below, which
-//     took 0.3329 / 0.2248 ms (grouped / decode, granite gate/up, 64 rows)
-//     where this one takes 0.0662 / 0.0651, and 2.78 ms where it takes
-//     0.323 at 8192 grouped rows (NVIDIA H100 80GB HBM3, 700.00 W;
-//     chip_smoke.py phase 2, spmm_ab.py; PERF.md).
+//   - bf16 tiled-bitmap experts, plain and NF4 (grouped_salr_spmm,
+//     decode_salr_spmm, grouped_qsalr_spmm, decode_qsalr_spmm): the tensor
+//     cores (expert_mma.cuh on splitk_gemm.cuh's walk).  A block owns 64
+//     columns and chunks of up to 64 rows; each 32-row step of K copies the
+//     rows' x and the step's cells with cp.async through a 4-stage ring
+//     (16-byte chunks on the main path: tile 256, cap_t 160), decodes the
+//     cells into a bf16 (32, 64) tile (a __popc prefix slot per column; a
+//     plain cell's stored bf16 value as it is, an NF4 cell's level from
+//     the table in shared memory x its f32 scale, rounded once to bf16: the
+//     reference's rounding) and runs mma.sync m16n8k16 in m16 row groups,
+//     so a decode tile of block_m 8 leaves 8 of 16 rows idle where the
+//     scalar body idled 24 of 32.  A plain stage holds one cell on the
+//     main path (72 KB for 4 stages at cap_t up to 256), so two blocks fit
+//     an SM as with NF4.  u and the adapter term run on the same walk,
+//     A_cat[e] and B_cat[e] slabs copied straight into the bf16 stage; each
+//     product is summed in f32 over slices of SLICE_K rows of K.  The
+//     grid fills the card at granite's decode (8 x 33 blocks at gate/up), so
+//     K is not split.  A grouped chunk whose x rows are all zero
+//     (group_assignments' slack tiles, past every expert's rows) skips its
+//     walks and stores the zeros they would give.  It replaced the scalar
+//     body below: at granite gate/up, 64 rows, grouped / decode 0.2707 /
+//     0.2522 ms -> 0.0510 / 0.0516 (plain), 0.3329 / 0.2248 -> 0.0580 /
+//     0.0575 (NF4); plain at 8192 grouped rows 2.832 -> 0.274 ms, at
+//     deepseek gate/up (E 256, 64 rows) 8.80 / 7.25 -> 1.64 / 1.69 ms
+//     (NVIDIA H100 80GB HBM3, 700.00 W; spmm_ab.py; PERF.md).
 //   - every other family and f32 (the scalar body of salr_spmm.cu,
 //     tiled_bitmap.cuh): a block of 128 threads owns 32 columns and chunks
 //     of 32 rows, stages a BK x BN slab of W[e] into shared memory as f32
@@ -80,10 +85,10 @@
 //     bytes, a dense slab as it is) and reduces each row over k in order,
 //     one thread per (row, column), on CUDA cores (rows_dense_dot for u,
 //     the adapter term and the dense base, rows_bitmap_dot and rows_nm_dot
-//     for the encoded bases).  A plain bitmap row there equals what
+//     for the encoded bases).  An f32 plain bitmap row there equals what
 //     salr_spmm gives for its expert's weights.  f32 is held at 1e-5,
-//     which TF32 tensor cores cannot meet; the bf16 plain, dense and N:M
-//     families are later work.
+//     which TF32 tensor cores cannot meet; the bf16 dense and N:M families
+//     are later work.
 #include <type_traits>
 
 #include "expert_mma.cuh"
@@ -421,40 +426,65 @@ moe_spmm_kernel(const T* __restrict__ x, W w, const T* __restrict__ u,
   }
 }
 
-// bf16 NF4 bitmap experts on the tensor cores (expert_mma.cuh), both
-// maps: the same two launches as above, with 64-column blocks and up to
-// 64 rows a chunk.
+// bf16 tiled-bitmap experts, plain and NF4, on the tensor cores
+// (expert_mma.cuh), both maps: the same two launches as above, with
+// 64-column blocks and up to 64 rows a chunk.
+using PlainExperts = BitmapExperts<__nv_bfloat16, salr::PlainValues<__nv_bfloat16>>;
 using NF4Experts = BitmapExperts<__nv_bfloat16, salr::NF4Values<__nv_bfloat16>>;
 namespace sk = salr::splitk;
+
+// The cell tile of a bf16 bitmap stack on the tensor cores.
+template <class W, bool FAST>
+struct CellTileOf;
+template <bool FAST>
+struct CellTileOf<PlainExperts, FAST> {
+  using type = sk::PlainCellTile<FAST>;
+};
+template <bool FAST>
+struct CellTileOf<NF4Experts, FAST> {
+  using type = sk::NF4CellTile<FAST>;
+};
+template <class W>
+constexpr bool kMma = std::is_same_v<W, PlainExperts> || std::is_same_v<W, NF4Experts>;
 
 struct MmaUShared {
   sk::XRing xs;
   sk::WTile raw[sk::STAGES];  // A_cat[e]'s slabs, multiplied in place
 };
 
+template <class Cells>
 struct MmaShared {
   sk::XRing xs;
   union {
-    sk::NF4Cells cells[sk::STAGES];  // the base walk's cells
-    sk::WTile dense[sk::STAGES];     // the adapter walk's B_cat[e] slabs
+    Cells cells[sk::STAGES];      // the base walk's cells
+    sk::WTile dense[sk::STAGES];  // the adapter walk's B_cat[e] slabs
   } raw;
   sk::WTile w;  // a step's decoded cells
-  float lut[16];
+  float lut[16];  // NF4: the levels
 };
 
+// K rows of a slice of chunk_product: 8 pipeline steps, 16 k16 mma steps.
+// The sum inside mma.sync is not an f32 add that rounds to nearest, and
+// one accumulator over all K drifts from the plain version as K grows
+// (deepseek gate/up, K = 7168, 64 rows: rel-L2 4.5e-4 against the 5e-4
+// limit, 2.4e-5 in slices).  Slices of 8 steps time within 2% of one
+// accumulator, slices of one step 12-18% slower (spmm_ab.py; NVIDIA H100
+// 80GB HBM3, 700.00 W; PERF.md).
+constexpr int SLICE_K = 8 * sk::BK;
+
 // acc = the chunk's x rows @ one column tile of a weight, over all K: one
-// walk, one slice, from a zeroed accumulator.
+// walk whose slices of SLICE_K rows each start from a zeroed accumulator,
+// acc = p0, then acc += p1, ... in f32, in order.
 template <class Tile, class XL>
 __device__ __forceinline__ void chunk_product(sk::XRing& xs, typename Tile::Raw* raw,
                                               sk::WTile& w, const Tile& tile, const XL& xl, int K,
                                               float acc[sk::WN / 8][4]) {
-  sk::walk(xs, raw, w, tile, xl, K, 0, K, (K + sk::BK - 1) / sk::BK * sk::BK,
-           [&](int, float(*p)[4]) {
+  sk::walk(xs, raw, w, tile, xl, K, 0, K, SLICE_K, [&](int s, float(*p)[4]) {
 #pragma unroll
-             for (int j = 0; j < sk::WN / 8; ++j)
+    for (int j = 0; j < sk::WN / 8; ++j)
 #pragma unroll
-               for (int q = 0; q < 4; ++q) acc[j][q] = p[j][q];
-           });
+      for (int q = 0; q < 4; ++q) acc[j][q] = s == 0 ? p[j][q] : acc[j][q] + p[j][q];
+  });
 }
 
 // Whether the chunk's x rows are all zero bits.  group_assignments pads
@@ -518,20 +548,20 @@ template <class W, class Map, bool FAST>
 __global__ void __launch_bounds__(sk::THREADS, sk::MIN_BLOCKS)
 moe_mma_spmm_kernel(const sk::bf16* __restrict__ x, W w, const sk::bf16* __restrict__ u,
                     const sk::bf16* __restrict__ b, sk::bf16* __restrict__ y, int R, Map map) {
+  using Tile = typename CellTileOf<W, FAST>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& s = *reinterpret_cast<MmaShared*>(smem);
+  auto& s = *reinterpret_cast<MmaShared<typename Tile::Raw>*>(smem);
   __shared__ int rows_s[sk::BM];
   __shared__ int list[WINDOW];
-  salr::load_nf4_table(s.lut);  // read after the map's first barrier
+  if constexpr (W::kTable) salr::load_nf4_table(s.lut);  // read after the map's first barrier
   const int N = w.cols(), n0 = blockIdx.x * sk::BN, width = min(sk::BN, N - n0);
   const size_t cells = (size_t)w.K * w.n_tiles;
   map.template for_each_chunk<sk::BM, sk::THREADS>(rows_s, list, [&](int e, int n) {
     float acc[sk::WN / 8][4] = {};
     if (e >= 0 && !zero_chunk_rows<Map, FAST>(x, rows_s, n, w.K)) {
-      const sk::NF4CellTile<FAST> tile(w.words + e * cells * w.wpt,
-                                       w.vals.codes + e * cells * (w.cap_t / 2),
-                                       w.vals.scales + e * cells, s.lut, w.n_tiles, w.wpt,
-                                       w.cap_t, blockIdx.x);
+      auto vals = expert_values(w.vals, e, cells);
+      if constexpr (W::kTable) vals.lut = s.lut;
+      const Tile tile(w.words + e * cells * w.wpt, vals, w.n_tiles, w.wpt, blockIdx.x);
       chunk_product(s.xs, s.raw.cells, s.w, tile, sk::GatherX<FAST>{x, rows_s, w.K, n}, w.K,
                     acc);
       if (R > 0) {
@@ -552,23 +582,31 @@ moe_mma_spmm_kernel(const sk::bf16* __restrict__ x, W w, const sk::bf16* __restr
   });
 }
 
-template <bool FAST, typename Map>
-int launch_nf4_mma(const void* x, const NF4Experts& w, const void* a, const void* b, void* u,
-                   void* y, const Map& map, int grid_y, int u_grid_y, int K, int R,
-                   cudaStream_t stream) {
+template <bool FAST, typename W, typename Map>
+int launch_mma(const void* x, const W& w, const void* a, const void* b, void* u, void* y,
+               const Map& map, int grid_y, int u_grid_y, int K, int R, cudaStream_t stream) {
+  using Shared = MmaShared<typename CellTileOf<W, FAST>::type::Raw>;
   const auto* xb = static_cast<const sk::bf16*>(x);
   if (R > 0) {
     const cudaError_t err =
-        sk::launch_with_smem<moe_mma_u_kernel<NF4Experts, Map, FAST>, MmaUShared>(
+        sk::launch_with_smem<moe_mma_u_kernel<W, Map, FAST>, MmaUShared>(
             dim3((R + sk::BN - 1) / sk::BN, u_grid_y), stream, xb,
             static_cast<const sk::bf16*>(a), static_cast<sk::bf16*>(u), K, R, map);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(
-      sk::launch_with_smem<moe_mma_spmm_kernel<NF4Experts, Map, FAST>, MmaShared>(
-          dim3((w.cols() + sk::BN - 1) / sk::BN, grid_y), stream, xb, w,
-          static_cast<const sk::bf16*>(u), static_cast<const sk::bf16*>(b),
-          static_cast<sk::bf16*>(y), R, map));
+  return static_cast<int>(sk::launch_with_smem<moe_mma_spmm_kernel<W, Map, FAST>, Shared>(
+      dim3((w.cols() + sk::BN - 1) / sk::BN, grid_y), stream, xb, w,
+      static_cast<const sk::bf16*>(u), static_cast<const sk::bf16*>(b),
+      static_cast<sk::bf16*>(y), R, map));
+}
+
+// Whether each thread can copy a stack's cells in fixed 16-byte chunks:
+// rows of values (codes) a multiple of 16 bytes, the pointer aligned.
+inline bool cells_vec(const PlainExperts& w) {
+  return w.cap_t % 8 == 0 && sk::aligned16(w.vals.values);
+}
+inline bool cells_vec(const NF4Experts& w) {
+  return w.cap_t % 32 == 0 && sk::aligned16(w.vals.codes);
 }
 
 // grid_y / u_grid_y: the map's y extent for the two launches (a tile
@@ -576,13 +614,13 @@ int launch_nf4_mma(const void* x, const NF4Experts& w, const void* a, const void
 template <typename T, typename W, typename Map>
 int launch(const void* x, const W& w, const void* a, const void* b, void* u, void* y,
            const Map& map, int grid_y, int u_grid_y, int K, int R, cudaStream_t stream) {
-  if constexpr (std::is_same_v<W, NF4Experts>) {
+  if constexpr (kMma<W>) {
     // FAST: 16-byte copies of x, u, the cells and the adapters' rows
-    if (sk::x_vec(x, K) && R % 8 == 0 && w.wpt % 4 == 0 && w.cap_t % 32 == 0 &&
-        sk::aligned16(w.words) && sk::aligned16(w.vals.codes) &&
+    if (sk::x_vec(x, K) && R % 8 == 0 && w.wpt % 4 == 0 && cells_vec(w) &&
+        sk::aligned16(w.words) &&
         (R == 0 || (sk::aligned16(a) && sk::aligned16(b) && sk::aligned16(u))))
-      return launch_nf4_mma<true>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
-    return launch_nf4_mma<false>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
+      return launch_mma<true>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
+    return launch_mma<false>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
   } else {
     if (R > 0) {  // a rank-0 stack has no adapter term
       dim3 grid_u((R + BN - 1) / BN, u_grid_y);

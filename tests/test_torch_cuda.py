@@ -471,14 +471,9 @@ def test_expert_kernels_pad_rows_and_planted_faults(cuda, dtype):
 
 
 
-@pytest.mark.parametrize("tile,cap_t", [(96, 72), (32, 24), (256, 160)])
-def test_qsalr_expert_kernels_any_tile(cuda, tile, cap_t):
-    """bf16 grouped_ and decode_qsalr_spmm on stacks whose 64-column blocks
-    straddle two column tiles (tile 96: three words a tile), hold one word
-    (tile 32) or lie in one (256), at 8 and 128 tokens: each matches its
-    plain version and the two routes are bitwise equal per row."""
-    gen = torch.Generator(device=cuda).manual_seed(tile)
-    n_exp, k, n, r = 8, 96, 2 * tile, 16
+def _bitmap_stacks(gen, cuda, n_exp, k, n, tile, cap_t, r):
+    """A bf16 tiled-bitmap expert stack (p = 0.5) at the given tile and
+    cap_t, its NF4 twin, and adapters A_cat (E, K, R), B_cat (E, R, N)."""
     w = torch.randn((n_exp * k, n), generator=gen, device=cuda) / k ** 0.5
     mask = prune.magnitude_mask(w, 0.5)
     flat, _ = tbm.tile_encode(prune.apply_mask(w, mask).to(torch.bfloat16), mask, tile, cap_t)
@@ -488,15 +483,49 @@ def test_qsalr_expert_kernels_any_tile(cuda, tile, cap_t):
     q, _ = tbm.tile_quantize_nf4(tbw)
     a = (torch.randn((n_exp, k, r), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
     b = (torch.randn((n_exp, r, n), generator=gen, device=cuda) / r ** 0.5).to(torch.bfloat16)
-    for n_tok in (8, 128):
-        x = (torch.randn((n_tok, k), generator=gen, device=cuda) / 4).to(torch.bfloat16)
-        _, g, xs, xd, row_e = _expert_rows(gen, cuda, x, n_exp, 2)
-        yg = ops.grouped_qsalr_matmul(xs, g.tile_expert, q, a, b, block_m=g.block_m)
-        yd = ops.decode_qsalr_matmul(xd, row_e, q, a, b)
-        assert _close(yg, ref.grouped_qsalr_spmm_ref(xs, g.tile_expert, q, a, b, g.block_m),
+    return {"salr": tbw, "qsalr": q}, a, b
+
+
+def _bitmap_routes_match(cuda, gen, stacks, a, b, n_exp, n_tok, k, topk):
+    """Both bitmap families' grouped and decode kernels at n_tok tokens:
+    each matches its plain version and the routes are bitwise equal per
+    row."""
+    x = (torch.randn((n_tok, k), generator=gen, device=cuda) / 4).to(torch.bfloat16)
+    _, g, xs, xd, row_e = _expert_rows(gen, cuda, x, n_exp, topk)
+    for kind, st in stacks.items():
+        yg = getattr(ops, f"grouped_{kind}_matmul")(xs, g.tile_expert, st, a, b,
+                                                    block_m=g.block_m)
+        yd = getattr(ops, f"decode_{kind}_matmul")(xd, row_e, st, a, b)
+        assert _close(yg, getattr(ref, f"grouped_{kind}_spmm_ref")(
+            xs, g.tile_expert, st, a, b, g.block_m), torch.bfloat16)
+        assert _close(yd, getattr(ref, f"decode_{kind}_spmm_ref")(xd, row_e, st, a, b),
                       torch.bfloat16)
-        assert _close(yd, ref.decode_qsalr_spmm_ref(xd, row_e, q, a, b), torch.bfloat16)
         assert torch.equal(yg[g.dst[g.inv]], yd)
+
+
+@pytest.mark.parametrize("tile,cap_t", [(96, 72), (32, 24), (256, 160)])
+def test_qsalr_expert_kernels_any_tile(cuda, tile, cap_t):
+    """bf16 grouped_ and decode_{salr,qsalr}_spmm on stacks whose 64-column
+    blocks straddle two column tiles (tile 96: three words a tile), hold
+    one word (tile 32) or lie in one (256), at 8 and 128 tokens: each
+    matches its plain version and the two routes are bitwise equal per
+    row."""
+    gen = torch.Generator(device=cuda).manual_seed(tile)
+    n_exp, k, n, r = 8, 96, 2 * tile, 16
+    stacks, a, b = _bitmap_stacks(gen, cuda, n_exp, k, n, tile, cap_t, r)
+    for n_tok in (8, 128):
+        _bitmap_routes_match(cuda, gen, stacks, a, b, n_exp, n_tok, k, 2)
+
+
+def test_bitmap_expert_kernels_many_experts(cuda):
+    """bf16 grouped_ and decode_{salr,qsalr}_spmm over 256 experts at 8
+    tokens, top-8 (deepseek_v3_671b's routing, narrow K and N): most
+    experts hold no row or one, and each kernel still matches its plain
+    version, the routes bitwise equal per row."""
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    stacks, a, b = _bitmap_stacks(gen, cuda, 256, 64, 256, 256, 160, 16)
+    _bitmap_routes_match(cuda, gen, stacks, a, b, 256, 8, 64, 8)
+
 
 def _nm_inclusive(nmw, e: int) -> torch.Tensor:
     """Expert e of an N:M stack decoded with each set bit's value read at

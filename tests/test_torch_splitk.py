@@ -155,38 +155,48 @@ def test_lora_f32_takes_no_plan(monkeypatch):
     assert set(_lora_launches(monkeypatch, 64, 8, 64, torch.float32)) == {(None, 0, 0)}
 
 
-@pytest.mark.parametrize("route", ["grouped", "decode"])
-def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, route):
-    """grouped_ and decode_qsalr_spmm launch with the stack's layout ints
-    (K, R, E, n_tiles, words per tile, cap_t; grouped: block_m) after M and
-    nothing else: no split of K that M, the tile count or an expert's rows
-    could move."""
+# the NF4 cases keep their earlier ids; the plain family's run beside them
+@pytest.mark.parametrize("kind,route", [
+    pytest.param("qsalr", "grouped", id="grouped"),
+    pytest.param("qsalr", "decode", id="decode"),
+    pytest.param("salr", "grouped", id="plain-grouped"),
+    pytest.param("salr", "decode", id="plain-decode")])
+def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
+    """The tiled-bitmap expert kernels, plain (grouped_ and decode_salr_spmm)
+    and NF4 (grouped_ and decode_qsalr_spmm), launch with the stack's
+    layout ints (K, R, E, n_tiles, words per tile, cap_t; grouped: block_m)
+    after M and nothing else: no split of K that M, the tile count or an
+    expert's rows could move."""
     from repro_torch.models import moe
     n_exp, k, n, r, topk = 4, 64, 512, 16, 2
     gen = torch.Generator().manual_seed(5)
     w = torch.randn((n_exp * k, n), generator=gen)
     mask = w.abs() > 0.7
-    tbw, _ = tbm.tile_encode(w * mask, mask, 256, 160)
+    tbw, _ = tbm.tile_encode((w * mask).to(torch.bfloat16), mask, 256, 160)
     tbw = tbm.TiledBitmapWeight(words=tbw.words.reshape(n_exp, k, 2, 8),
                                 values=tbw.values.reshape(n_exp, k, 2, 160),
                                 cols=n, tile=256, cap_t=160)
-    q, _ = tbm.tile_quantize_nf4(tbw)
+    stack = tbm.tile_quantize_nf4(tbw)[0] if kind == "qsalr" else tbw
     a = torch.randn((n_exp, k, r), generator=gen).to(torch.bfloat16)
     b = torch.randn((n_exp, r, n), generator=gen).to(torch.bfloat16)
     seen = []
     monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
     monkeypatch.setattr(ops, "_launch", lambda name, device, *args: seen.append(args))
+    # x, the stack's leaves (words + values, or words + codes + scales),
+    # A_cat, B_cat, u, y and the row map come before M
+    skip = 7 + (3 if kind == "qsalr" else 2)
     for n_tok in (1, 4, 8, 33, 128):
         x = torch.randn((n_tok, k), generator=gen).to(torch.bfloat16)
         top_i = torch.rand((n_tok, n_exp), generator=gen).argsort(dim=1)[:, :topk]
         if route == "decode":
             xd = x.repeat_interleave(topk, dim=0)
-            ops.decode_qsalr_matmul(xd, top_i.reshape(-1).to(torch.int32), q, a, b)
+            getattr(ops, f"decode_{kind}_matmul")(xd, top_i.reshape(-1).to(torch.int32),
+                                                  stack, a, b)
             want = (k, r, n_exp, 2, 8, 160, 1)
         else:
             g = moe.group_assignments(top_i, n_exp, moe._group_block_m(n_tok * topk, n_exp))
             xs = x.new_zeros((g.m_pad, k))
-            ops.grouped_qsalr_matmul(xs, g.tile_expert, q, a, b, block_m=g.block_m)
+            getattr(ops, f"grouped_{kind}_matmul")(xs, g.tile_expert, stack, a, b,
+                                                   block_m=g.block_m)
             want = (k, r, n_exp, 2, 8, 160, g.block_m, 1)
-        # x, words, codes, scales, A_cat, B_cat, u, y, the row map, then M
-        assert seen[-1][10:] == want
+        assert seen[-1][skip:] == want
