@@ -2194,7 +2194,7 @@ def tick_profile(torch, eng, prompts) -> dict:
     # salr_spmm.cu's two ops share kernel names; the NF4 loader in the
     # template arguments marks qsalr_spmm's, so it is matched first (after
     # the expert kernels, whose row map names them: the scalar body's
-    # moe_*_kernel<T, W, Map> and the bf16 NF4 body's moe_mma_*_kernel<W,
+    # moe_*_kernel<T, W, Map> and the tensor-core body's moe_mma_*_kernel<W,
     # Map, FAST> alike).  The nm_spmm_kernel and nf4_spmm_kernel prefixes
     # cover each op's split-K kernels (*_splitk, *_rows), its own reduce
     # pass (*_reduce) and its f32 column GEMM; fused_lora_kernel its u

@@ -16,13 +16,13 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
   at M = 8 and 256 to 1024;
 - ``lora``: ``fused_lora`` (R = 128) at smollm_135m's wo and down and
   granite_moe_1b_a400m's wo at M = 4 to 1024;
-- ``experts``: the tiled-bitmap expert kernels, plain and NF4
-  (``grouped_salr_spmm``, ``decode_salr_spmm``, ``grouped_qsalr_spmm``,
-  ``decode_qsalr_spmm``), at granite_moe_1b_a400m's gate/up and down
-  stacks (E 32, top-8, R = 128) at 8 tokens (64 rows) and 128 tokens
-  (decode: 1024 rows) or 1024 tokens (grouped: 8192 rows), and the other
-  two families' grouped and decode kernels (masked dense, 2:4) at 8
-  tokens;
+- ``experts``: the expert kernels on the tensor-core body, tiled bitmap
+  plain and NF4 and 2:4 (``grouped_salr_spmm``, ``decode_salr_spmm``,
+  ``grouped_qsalr_spmm``, ``decode_qsalr_spmm``, ``grouped_nm_spmm``,
+  ``decode_nm_spmm``), at granite_moe_1b_a400m's gate/up and down stacks
+  (E 32, top-8, R = 128) at 8 tokens (64 rows) and 128 tokens (decode:
+  1024 rows) or 1024 tokens (grouped: 8192 rows), and the masked dense
+  family's grouped and decode kernels at 8 tokens;
 - ``deepseek``: ``grouped_salr_spmm`` and ``decode_salr_spmm`` at
   deepseek_v3_671b's gate/up and down stacks (E 256, top-8, R = 128,
   ``chip_smoke._ds_stack``) at 8 tokens (64 rows).
@@ -160,7 +160,7 @@ with torch.inference_mode():
                 xd = x.repeat_interleave(topk, dim=0)
                 row_e = top_i.reshape(-1).to(torch.int32)
                 for kind, st in stacks.items():
-                    if kind not in ("salr", "qsalr") and n_tok != 8:
+                    if kind == "dense" and n_tok != 8:
                         continue
                     fns = {"grouped": lambda: getattr(ops, f"grouped_{kind}_matmul")(
                                xs, g.tile_expert, st, a, b, block_m=g.block_m),

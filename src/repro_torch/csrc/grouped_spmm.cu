@@ -5,16 +5,18 @@
 //
 // with W[e] expert e's base decoded inside the GEMM.  One kernel body,
 // templated on the expert weights (how a block's slab of W[e] is read)
-// and on how a row finds its expert:
+// and on how a row finds its expert; a bf16 stack whose family has a
+// tensor-core tile runs the tensor-core body with it:
 //
-//   grouped_salr_spmm   BitmapExperts<PlainValues>  TileMap  e(r) = tile_expert[r / block_m]
-//   grouped_qsalr_spmm  BitmapExperts<NF4Values>    TileMap
-//   grouped_dense_spmm  DenseExperts                TileMap
-//   grouped_nm_spmm     NMExperts                   TileMap
-//   decode_salr_spmm    BitmapExperts<PlainValues>  RowMap   e(r) = row_expert[r], -1: a pad row
-//   decode_qsalr_spmm   BitmapExperts<NF4Values>    RowMap
-//   decode_dense_spmm   DenseExperts                RowMap
-//   decode_nm_spmm      NMExperts                   RowMap
+//   kernel              weights                     bf16 tile        map
+//   grouped_salr_spmm   BitmapExperts<PlainValues>  PlainCellTile    TileMap  e(r) = tile_expert[r / block_m]
+//   grouped_qsalr_spmm  BitmapExperts<NF4Values>    NF4CellTile      TileMap
+//   grouped_dense_spmm  DenseExperts                -                TileMap
+//   grouped_nm_spmm     NMExperts                   NMTile (m | 64)  TileMap
+//   decode_salr_spmm    BitmapExperts<PlainValues>  PlainCellTile    RowMap   e(r) = row_expert[r], -1: a pad row
+//   decode_qsalr_spmm   BitmapExperts<NF4Values>    NF4CellTile      RowMap
+//   decode_dense_spmm   DenseExperts                -                RowMap
+//   decode_nm_spmm      NMExperts                   NMTile (m | 64)  RowMap
 //
 // Replaces: src/repro/kernels/grouped_spmm.py:grouped_salr_spmm_pallas,
 // :grouped_qsalr_spmm_pallas, :grouped_dense_spmm_pallas and
@@ -54,44 +56,52 @@
 //
 // Two bodies:
 //   - bf16 tiled-bitmap experts, plain and NF4 (grouped_salr_spmm,
-//     decode_salr_spmm, grouped_qsalr_spmm, decode_qsalr_spmm): the tensor
-//     cores (expert_mma.cuh on splitk_gemm.cuh's walk).  A block owns 64
-//     columns and chunks of up to 64 rows; each 32-row step of K copies the
-//     rows' x and the step's cells with cp.async through a 4-stage ring
-//     (16-byte chunks on the main path: tile 256, cap_t 160), decodes the
-//     cells into a bf16 (32, 64) tile (a __popc prefix slot per column; a
-//     plain cell's stored bf16 value as it is, an NF4 cell's level from
-//     the table in shared memory x its f32 scale, rounded once to bf16: the
-//     reference's rounding) and runs mma.sync m16n8k16 in m16 row groups,
-//     so a decode tile of block_m 8 leaves 8 of 16 rows idle where the
-//     scalar body idled 24 of 32.  A plain stage holds one cell on the
-//     main path (72 KB for 4 stages at cap_t up to 256), so two blocks fit
-//     an SM as with NF4.  u and the adapter term run on the same walk,
-//     A_cat[e] and B_cat[e] slabs copied straight into the bf16 stage; each
-//     product is summed in f32 over slices of SLICE_K rows of K.  The
-//     grid fills the card at granite's decode (8 x 33 blocks at gate/up), so
-//     K is not split.  A grouped chunk whose x rows are all zero
-//     (group_assignments' slack tiles, past every expert's rows) skips its
-//     walks and stores the zeros they would give.  It replaced the scalar
-//     body below: at granite gate/up, 64 rows, grouped / decode 0.2707 /
-//     0.2522 ms -> 0.0510 / 0.0516 (plain), 0.3329 / 0.2248 -> 0.0580 /
-//     0.0575 (NF4); plain at 8192 grouped rows 2.832 -> 0.274 ms, at
-//     deepseek gate/up (E 256, 64 rows) 8.80 / 7.25 -> 1.64 / 1.69 ms
-//     (NVIDIA H100 80GB HBM3, 700.00 W; spmm_ab.py; PERF.md).
-//   - every other family and f32 (the scalar body of salr_spmm.cu,
-//     tiled_bitmap.cuh): a block of 128 threads owns 32 columns and chunks
-//     of 32 rows, stages a BK x BN slab of W[e] into shared memory as f32
-//     (a bitmap slab decoded from its words, an N:M slab from its group
-//     bytes, a dense slab as it is) and reduces each row over k in order,
-//     one thread per (row, column), on CUDA cores (rows_dense_dot for u,
-//     the adapter term and the dense base, rows_bitmap_dot and rows_nm_dot
-//     for the encoded bases).  An f32 plain bitmap row there equals what
-//     salr_spmm gives for its expert's weights.  f32 is held at 1e-5,
-//     which TF32 tensor cores cannot meet; the bf16 dense and N:M families
-//     are later work.
+//     decode_salr_spmm, grouped_qsalr_spmm, decode_qsalr_spmm), and bf16
+//     N:M experts whose m divides 64 (grouped_nm_spmm, decode_nm_spmm: 2:4
+//     on the main path): the tensor cores (expert_mma.cuh and nm_tile.cuh
+//     on splitk_gemm.cuh's walk).  A block owns 64 columns and chunks of up
+//     to 64 rows; each 32-row step of K copies the rows' x and the step's
+//     encoded rows with cp.async through a 4-stage ring (16-byte chunks on
+//     the main path: tile 256, cap_t 160; 2:4 with N/4 a multiple of 16),
+//     decodes them into a bf16 (32, 64) tile (a __popc prefix slot per
+//     column; a plain cell's or an N:M group's stored bf16 value as it is,
+//     an NF4 cell's level from the table in shared memory x its f32 scale,
+//     rounded once to bf16: the reference's rounding) and runs mma.sync
+//     m16n8k16 in m16 row groups, so a decode tile of block_m 8 leaves 8 of
+//     16 rows idle where the scalar body idled 24 of 32.  A plain stage
+//     holds one cell on the main path (72 KB for 4 stages at cap_t up to
+//     256), so two blocks fit an SM as with NF4; a 2:4 stage is a 64-column
+//     block's 16 group bytes and 64 values a row (NMTile, as in nm_spmm).
+//     u and the adapter term run on the same walk, A_cat[e] and B_cat[e]
+//     slabs copied straight into the bf16 stage; each product is summed in
+//     f32 over slices of SLICE_K rows of K.  The grid fills the card at
+//     granite's decode (8 x 33 blocks at gate/up), so K is not split.  A
+//     grouped chunk whose x rows are all zero (group_assignments' slack
+//     tiles, past every expert's rows) skips its walks and stores the zeros
+//     they would give.  It replaced the scalar body below: at granite
+//     gate/up, 64 rows, grouped / decode 0.2707 / 0.2522 ms -> 0.0510 /
+//     0.0516 (plain), 0.3329 / 0.2248 -> 0.0580 / 0.0575 (NF4), 0.2540 /
+//     0.2640 -> 0.0382 / 0.0388 (2:4); at 8192 grouped rows 2.832 -> 0.274
+//     ms (plain), 2.035 -> 0.190 (2:4); plain at deepseek gate/up (E 256,
+//     64 rows) 8.80 / 7.25 -> 1.64 / 1.69 ms (NVIDIA H100 80GB HBM3, 700.00
+//     W; spmm_ab.py; PERF.md).  An N:M tile owns BN - BN % m columns and the
+//     body's blocks BN = 64, so a stack whose m does not divide 64 (m in
+//     {3, 5, 6, 7}, which no configuration uses) keeps the scalar body.
+//   - f32, the dense family and N:M at those m (the scalar body of
+//     salr_spmm.cu, tiled_bitmap.cuh): a block of 128 threads owns 32
+//     columns and chunks of 32 rows, stages a BK x BN slab of W[e] into
+//     shared memory as f32 (a bitmap slab decoded from its words, an N:M
+//     slab from its group bytes, a dense slab as it is) and reduces each
+//     row over k in order, one thread per (row, column), on CUDA cores
+//     (rows_dense_dot for u, the adapter term and the dense base,
+//     rows_bitmap_dot and rows_nm_dot for the encoded bases).  An f32 plain
+//     bitmap row there equals what salr_spmm gives for its expert's
+//     weights.  f32 is held at 1e-5, which TF32 tensor cores cannot meet;
+//     the bf16 dense family is later work.
 #include <type_traits>
 
 #include "expert_mma.cuh"
+#include "nm_tile.cuh"
 #include "tiled_bitmap.cuh"
 
 namespace {
@@ -426,16 +436,20 @@ moe_spmm_kernel(const T* __restrict__ x, W w, const T* __restrict__ u,
   }
 }
 
-// bf16 tiled-bitmap experts, plain and NF4, on the tensor cores
-// (expert_mma.cuh), both maps: the same two launches as above, with
-// 64-column blocks and up to 64 rows a chunk.
+// bf16 tiled-bitmap experts, plain and NF4, and bf16 N:M experts on the
+// tensor cores (expert_mma.cuh, nm_tile.cuh), both maps: the same two
+// launches as above, with 64-column blocks and up to 64 rows a chunk.
 using PlainExperts = BitmapExperts<__nv_bfloat16, salr::PlainValues<__nv_bfloat16>>;
 using NF4Experts = BitmapExperts<__nv_bfloat16, salr::NF4Values<__nv_bfloat16>>;
 namespace sk = salr::splitk;
+template <int NK>
+using NMBf16Experts = NMExperts<sk::bf16, NK>;
 
-// The cell tile of a bf16 bitmap stack on the tensor cores.
+// The tile of a bf16 stack on the tensor cores; void: the family has none.
 template <class W, bool FAST>
-struct CellTileOf;
+struct CellTileOf {
+  using type = void;
+};
 template <bool FAST>
 struct CellTileOf<PlainExperts, FAST> {
   using type = sk::PlainCellTile<FAST>;
@@ -444,8 +458,37 @@ template <bool FAST>
 struct CellTileOf<NF4Experts, FAST> {
   using type = sk::NF4CellTile<FAST>;
 };
+template <int NK, bool FAST>
+struct CellTileOf<NMBf16Experts<NK>, FAST> {
+  using type = sk::NMTile<NK, FAST>;
+};
 template <class W>
-constexpr bool kMma = std::is_same_v<W, PlainExperts> || std::is_same_v<W, NF4Experts>;
+constexpr bool kMma = !std::is_void_v<typename CellTileOf<W, false>::type>;
+
+// Expert e's tile of column block `block` (64 columns); lut: the NF4
+// levels in shared memory.
+template <bool FAST>
+__device__ __forceinline__ sk::PlainCellTile<FAST> tile_of(const PlainExperts& w, int e,
+                                                           int block, const float*) {
+  const size_t cells = (size_t)w.K * w.n_tiles;
+  return {w.words + e * cells * w.wpt, expert_values(w.vals, e, cells), w.n_tiles, w.wpt, block};
+}
+template <bool FAST>
+__device__ __forceinline__ sk::NF4CellTile<FAST> tile_of(const NF4Experts& w, int e, int block,
+                                                         const float* lut) {
+  const size_t cells = (size_t)w.K * w.n_tiles;
+  auto vals = expert_values(w.vals, e, cells);
+  vals.lut = lut;
+  return {w.words + e * cells * w.wpt, vals, w.n_tiles, w.wpt, block};
+}
+// An N:M tile owns BN / m groups: the block's 64 columns where m divides
+// 64 (launch sends the other m to the scalar body).
+template <bool FAST, int NK>
+__device__ __forceinline__ sk::NMTile<NK, FAST> tile_of(const NMBf16Experts<NK>& w, int e,
+                                                        int block, const float*) {
+  const size_t per = (size_t)w.K * (w.N / w.m);  // group bytes of one expert
+  return {w.bits + e * per, w.values + e * per * NK, w.N, w.m, block};
+}
 
 struct MmaUShared {
   sk::XRing xs;
@@ -555,13 +598,10 @@ moe_mma_spmm_kernel(const sk::bf16* __restrict__ x, W w, const sk::bf16* __restr
   __shared__ int list[WINDOW];
   if constexpr (W::kTable) salr::load_nf4_table(s.lut);  // read after the map's first barrier
   const int N = w.cols(), n0 = blockIdx.x * sk::BN, width = min(sk::BN, N - n0);
-  const size_t cells = (size_t)w.K * w.n_tiles;
   map.template for_each_chunk<sk::BM, sk::THREADS>(rows_s, list, [&](int e, int n) {
     float acc[sk::WN / 8][4] = {};
     if (e >= 0 && !zero_chunk_rows<Map, FAST>(x, rows_s, n, w.K)) {
-      auto vals = expert_values(w.vals, e, cells);
-      if constexpr (W::kTable) vals.lut = s.lut;
-      const Tile tile(w.words + e * cells * w.wpt, vals, w.n_tiles, w.wpt, blockIdx.x);
+      const Tile tile = tile_of<FAST>(w, e, blockIdx.x, s.lut);
       chunk_product(s.xs, s.raw.cells, s.w, tile, sk::GatherX<FAST>{x, rows_s, w.K, n}, w.K,
                     acc);
       if (R > 0) {
@@ -600,13 +640,43 @@ int launch_mma(const void* x, const W& w, const void* a, const void* b, void* u,
       static_cast<sk::bf16*>(y), R, map));
 }
 
-// Whether each thread can copy a stack's cells in fixed 16-byte chunks:
-// rows of values (codes) a multiple of 16 bytes, the pointer aligned.
+// Whether each thread can copy a stack's encoded rows in fixed 16-byte
+// chunks: rows of words and values (codes; N:M: group bytes and values) a
+// multiple of 16 bytes, the pointers aligned.
 inline bool cells_vec(const PlainExperts& w) {
-  return w.cap_t % 8 == 0 && sk::aligned16(w.vals.values);
+  return w.wpt % 4 == 0 && sk::aligned16(w.words) && w.cap_t % 8 == 0 &&
+         sk::aligned16(w.vals.values);
 }
 inline bool cells_vec(const NF4Experts& w) {
-  return w.cap_t % 32 == 0 && sk::aligned16(w.vals.codes);
+  return w.wpt % 4 == 0 && sk::aligned16(w.words) && w.cap_t % 32 == 0 &&
+         sk::aligned16(w.vals.codes);
+}
+template <int NK>
+inline bool cells_vec(const NMBf16Experts<NK>& w) {
+  return sk::NMTile<NK, true>::fast(w.bits, w.values, w.N, w.m);
+}
+
+template <class W>
+constexpr bool kNM = false;
+template <typename T, int NK>
+constexpr bool kNM<NMExperts<T, NK>> = true;
+
+// The scalar body: both launches on CUDA cores.
+template <typename T, typename W, typename Map>
+int launch_scalar(const void* x, const W& w, const void* a, const void* b, void* u, void* y,
+                  const Map& map, int grid_y, int u_grid_y, int K, int R, cudaStream_t stream) {
+  if (R > 0) {  // a rank-0 stack has no adapter term
+    dim3 grid_u((R + BN - 1) / BN, u_grid_y);
+    moe_adapter_u_kernel<T, W, Map><<<grid_u, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), K, R, map);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid((w.cols() + BN - 1) / BN, grid_y);
+  moe_spmm_kernel<T, W, Map><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), w, static_cast<const T*>(u), static_cast<const T*>(b),
+      static_cast<T*>(y), R, map);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // grid_y / u_grid_y: the map's y extent for the two launches (a tile
@@ -615,25 +685,17 @@ template <typename T, typename W, typename Map>
 int launch(const void* x, const W& w, const void* a, const void* b, void* u, void* y,
            const Map& map, int grid_y, int u_grid_y, int K, int R, cudaStream_t stream) {
   if constexpr (kMma<W>) {
-    // FAST: 16-byte copies of x, u, the cells and the adapters' rows
-    if (sk::x_vec(x, K) && R % 8 == 0 && w.wpt % 4 == 0 && cells_vec(w) &&
-        sk::aligned16(w.words) &&
+    if constexpr (kNM<W>) {
+      if (sk::BN % w.m != 0)  // an N:M tile would own fewer columns than a block
+        return launch_scalar<T>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
+    }
+    // FAST: 16-byte copies of x, u, the encoded rows and the adapters' rows
+    if (sk::x_vec(x, K) && R % 8 == 0 && cells_vec(w) &&
         (R == 0 || (sk::aligned16(a) && sk::aligned16(b) && sk::aligned16(u))))
       return launch_mma<true>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
     return launch_mma<false>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
   } else {
-    if (R > 0) {  // a rank-0 stack has no adapter term
-      dim3 grid_u((R + BN - 1) / BN, u_grid_y);
-      moe_adapter_u_kernel<T, W, Map><<<grid_u, THREADS, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(a), static_cast<T*>(u), K, R, map);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    dim3 grid((w.cols() + BN - 1) / BN, grid_y);
-    moe_spmm_kernel<T, W, Map><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), w, static_cast<const T*>(u), static_cast<const T*>(b),
-        static_cast<T*>(y), R, map);
-    return static_cast<int>(cudaGetLastError());
+    return launch_scalar<T>(x, w, a, b, u, y, map, grid_y, u_grid_y, K, R, stream);
   }
 }
 

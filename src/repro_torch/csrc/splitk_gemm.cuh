@@ -10,13 +10,13 @@
 // most BN columns and BM rows of x (rows past M zero), 8 warps of 16 rows x
 // 32 columns, and walks its K range in steps of BK rows through a ring of
 // STAGES shared-memory stages filled by cp.async, three steps ahead.  The
-// weight loader (a Tile: NMTile, NF4Tile) copies a step's compressed rows
-// and decodes them into a bf16 (BK, BN) tile, zero past K and past the
-// tile's columns; each warp then multiplies its rows by it, k16 step by k16
-// step (fragments via ldmatrix).  FAST kernels (the main path's shapes: every
-// address and stride 16-byte aligned) give each thread one fixed 16-byte
-// chunk per stream and step; the others copy with the widest width the
-// addresses allow.  A slice's partial starts from a zeroed accumulator, and
+// weight loader (a Tile: nm_tile.cuh's NMTile, NF4Tile) copies a step's
+// compressed rows and decodes them into a bf16 (BK, BN) tile, zero past K
+// and past the tile's columns; each warp then multiplies its rows by it,
+// k16 step by k16 step (fragments via ldmatrix).  FAST kernels (the main
+// path's shapes: every address and stride 16-byte aligned) give each
+// thread one fixed 16-byte chunk per stream and step; the others copy with
+// the widest width the addresses allow.  A slice's partial starts from a zeroed accumulator, and
 // the output is p0 + p1 + ... + p(S-1) in f32, in that order, rounded once
 // to bf16.  Two dispatches give the same bits:
 //   - slices (slices_block): one block per (column tile, row tile, slice)

@@ -486,10 +486,19 @@ def _bitmap_stacks(gen, cuda, n_exp, k, n, tile, cap_t, r):
     return {"salr": tbw, "qsalr": q}, a, b
 
 
-def _bitmap_routes_match(cuda, gen, stacks, a, b, n_exp, n_tok, k, topk):
-    """Both bitmap families' grouped and decode kernels at n_tok tokens:
-    each matches its plain version and the routes are bitwise equal per
-    row."""
+def _nm_stacks(gen, cuda, n_exp, k, n, nm, r):
+    """A bf16 n:m expert stack (groups along N) and adapters A_cat (E, K,
+    R), B_cat (E, R, N)."""
+    w = torch.randn((n_exp, k, n), generator=gen, device=cuda) / k ** 0.5
+    nmw, _ = tbm.nm_encode(w.to(torch.bfloat16), *nm)
+    a = (torch.randn((n_exp, k, r), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((n_exp, r, n), generator=gen, device=cuda) / r ** 0.5).to(torch.bfloat16)
+    return {"nm": nmw}, a, b
+
+
+def _expert_routes_match(cuda, gen, stacks, a, b, n_exp, n_tok, k, topk):
+    """Each stack's grouped and decode kernels at n_tok tokens: each
+    matches its plain version and the routes are bitwise equal per row."""
     x = (torch.randn((n_tok, k), generator=gen, device=cuda) / 4).to(torch.bfloat16)
     _, g, xs, xd, row_e = _expert_rows(gen, cuda, x, n_exp, topk)
     for kind, st in stacks.items():
@@ -514,17 +523,41 @@ def test_qsalr_expert_kernels_any_tile(cuda, tile, cap_t):
     n_exp, k, n, r = 8, 96, 2 * tile, 16
     stacks, a, b = _bitmap_stacks(gen, cuda, n_exp, k, n, tile, cap_t, r)
     for n_tok in (8, 128):
-        _bitmap_routes_match(cuda, gen, stacks, a, b, n_exp, n_tok, k, 2)
+        _expert_routes_match(cuda, gen, stacks, a, b, n_exp, n_tok, k, 2)
 
 
-def test_bitmap_expert_kernels_many_experts(cuda):
-    """bf16 grouped_ and decode_{salr,qsalr}_spmm over 256 experts at 8
-    tokens, top-8 (deepseek_v3_671b's routing, narrow K and N): most
-    experts hold no row or one, and each kernel still matches its plain
-    version, the routes bitwise equal per row."""
+# (K, N, (n, m)): the generic N:M tile at m = 1, 2, 8 and at 2:4 off the
+# FAST path, each with N/m not a multiple of 16 or K not of 8; 2:6, whose
+# m does not divide the 64-column block, on the scalar body
+@pytest.mark.parametrize("k,n,nm", [(100, 200, (2, 4)), (96, 200, (1, 1)), (100, 136, (1, 2)),
+                                    (64, 200, (4, 8)), (96, 192, (2, 6))],
+                         ids=["2:4-generic", "1:1", "1:2", "4:8", "2:6-scalar"])
+def test_nm_expert_kernels_any_m(cuda, k, n, nm):
+    """bf16 grouped_ and decode_nm_spmm at 8 and 128 tokens: each matches
+    its plain version and the two routes are bitwise equal per row; with
+    no adapter (rank 0) the decode kernel matches the plain base alone."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n + nm[1])
+    stacks, a, b = _nm_stacks(gen, cuda, 8, k, n, nm, 16)
+    for n_tok in (8, 128):
+        _expert_routes_match(cuda, gen, stacks, a, b, 8, n_tok, k, 2)
+    x = (torch.randn((16, k), generator=gen, device=cuda) / 4).to(torch.bfloat16)
+    re_ = torch.tensor([0, 3, -1, 7] * 4, dtype=torch.int32, device=cuda)
+    y0 = ops.decode_nm_matmul(x, re_, stacks["nm"], a[..., :0], b[:, :0])
+    assert _close(y0, ref.decode_nm_spmm_ref(x, re_, stacks["nm"], None, None), torch.bfloat16)
+
+
+@pytest.mark.parametrize("family", ["bitmap", "nm"])
+def test_bitmap_expert_kernels_many_experts(cuda, family):
+    """bf16 grouped_ and decode_{salr,qsalr}_spmm (bitmap) or _nm_spmm (2:4)
+    over 256 experts at 8 tokens, top-8 (deepseek_v3_671b's routing,
+    narrow K and N): most experts hold no row or one, and each kernel still
+    matches its plain version, the routes bitwise equal per row."""
     gen = torch.Generator(device=cuda).manual_seed(256)
-    stacks, a, b = _bitmap_stacks(gen, cuda, 256, 64, 256, 256, 160, 16)
-    _bitmap_routes_match(cuda, gen, stacks, a, b, 256, 8, 64, 8)
+    if family == "bitmap":
+        stacks, a, b = _bitmap_stacks(gen, cuda, 256, 64, 256, 256, 160, 16)
+    else:
+        stacks, a, b = _nm_stacks(gen, cuda, 256, 64, 256, (2, 4), 16)
+    _expert_routes_match(cuda, gen, stacks, a, b, 256, 8, 64, 8)
 
 
 def _nm_inclusive(nmw, e: int) -> torch.Tensor:

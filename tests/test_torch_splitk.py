@@ -155,18 +155,22 @@ def test_lora_f32_takes_no_plan(monkeypatch):
     assert set(_lora_launches(monkeypatch, 64, 8, 64, torch.float32)) == {(None, 0, 0)}
 
 
-# the NF4 cases keep their earlier ids; the plain family's run beside them
+# the NF4 cases keep their earlier ids; the plain and 2:4 families' run
+# beside them
 @pytest.mark.parametrize("kind,route", [
     pytest.param("qsalr", "grouped", id="grouped"),
     pytest.param("qsalr", "decode", id="decode"),
     pytest.param("salr", "grouped", id="plain-grouped"),
-    pytest.param("salr", "decode", id="plain-decode")])
+    pytest.param("salr", "decode", id="plain-decode"),
+    pytest.param("nm", "grouped", id="nm-grouped"),
+    pytest.param("nm", "decode", id="nm-decode")])
 def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
-    """The tiled-bitmap expert kernels, plain (grouped_ and decode_salr_spmm)
-    and NF4 (grouped_ and decode_qsalr_spmm), launch with the stack's
-    layout ints (K, R, E, n_tiles, words per tile, cap_t; grouped: block_m)
-    after M and nothing else: no split of K that M, the tile count or an
-    expert's rows could move."""
+    """The expert kernels on the tensor-core body, tiled bitmap plain
+    (grouped_ and decode_salr_spmm) and NF4 (grouped_ and
+    decode_qsalr_spmm) and 2:4 (grouped_ and decode_nm_spmm), launch with
+    the stack's layout ints after M (K, R, E, then n_tiles, words per tile
+    and cap_t, or N, n and m; grouped: block_m) and nothing else: no split
+    of K that M, the tile count or an expert's rows could move."""
     from repro_torch.models import moe
     n_exp, k, n, r, topk = 4, 64, 512, 16, 2
     gen = torch.Generator().manual_seed(5)
@@ -176,14 +180,16 @@ def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
     tbw = tbm.TiledBitmapWeight(words=tbw.words.reshape(n_exp, k, 2, 8),
                                 values=tbw.values.reshape(n_exp, k, 2, 160),
                                 cols=n, tile=256, cap_t=160)
-    stack = tbm.tile_quantize_nf4(tbw)[0] if kind == "qsalr" else tbw
+    stack = {"salr": tbw, "qsalr": tbm.tile_quantize_nf4(tbw)[0],
+             "nm": tbm.nm_encode(w.reshape(n_exp, k, n).to(torch.bfloat16))[0]}[kind]
+    layout = (n, 2, 4) if kind == "nm" else (2, 8, 160)
     a = torch.randn((n_exp, k, r), generator=gen).to(torch.bfloat16)
     b = torch.randn((n_exp, r, n), generator=gen).to(torch.bfloat16)
     seen = []
     monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
     monkeypatch.setattr(ops, "_launch", lambda name, device, *args: seen.append(args))
-    # x, the stack's leaves (words + values, or words + codes + scales),
-    # A_cat, B_cat, u, y and the row map come before M
+    # x, the stack's leaves (words + values, words + codes + scales, or
+    # group bytes + values), A_cat, B_cat, u, y and the row map come before M
     skip = 7 + (3 if kind == "qsalr" else 2)
     for n_tok in (1, 4, 8, 33, 128):
         x = torch.randn((n_tok, k), generator=gen).to(torch.bfloat16)
@@ -192,11 +198,11 @@ def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
             xd = x.repeat_interleave(topk, dim=0)
             getattr(ops, f"decode_{kind}_matmul")(xd, top_i.reshape(-1).to(torch.int32),
                                                   stack, a, b)
-            want = (k, r, n_exp, 2, 8, 160, 1)
+            want = (k, r, n_exp, *layout, 1)
         else:
             g = moe.group_assignments(top_i, n_exp, moe._group_block_m(n_tok * topk, n_exp))
             xs = x.new_zeros((g.m_pad, k))
             getattr(ops, f"grouped_{kind}_matmul")(xs, g.tile_expert, stack, a, b,
                                                    block_m=g.block_m)
-            want = (k, r, n_exp, 2, 8, 160, g.block_m, 1)
+            want = (k, r, n_exp, *layout, g.block_m, 1)
         assert seen[-1][skip:] == want
