@@ -22,7 +22,10 @@ Phases (any failure exits non-zero before the result line):
    slots) and 8 (greedy_generate's batch), and at M = 1024, which the
    main path never gives it (prefill is native), to hold its grid over
    many row blocks too; the bf16 limit must reject the NF4 values left
-   unrounded (f32 into the product).  ``paged_gqa_attention``
+   unrounded (f32 into the product).  In bf16 both ops' rows at M = 1,
+   4, 8, 33 and 128 must equal the same rows at M = 1024 bit for bit (the
+   split-K kernels' slices and rows dispatches), as must M = 1024 with
+   either dispatch forced.  ``paged_gqa_attention``
    and the four quantized decode-attention kernels (ring and paged, int8
    and NF4) at 4 and 8 slots with 300 / 532 live positions: with NaN or
    junk in the null page and a freed page (data and scales), or past
@@ -61,7 +64,8 @@ Phases (any failure exits non-zero before the result line):
    deepseek_v3_671b's expert stacks (E 256, top-8, gate/up 7168 -> 2048,
    down 2048 -> 7168, R 128) at 64 assignment rows, grouped and decode
    bitwise equal per row, with the same two planted faults each, and
-   ``salr_spmm`` at its shared expert's projections at 8 rows.  Each is
+   ``salr_spmm`` at its shared expert's projections and at its wo (16384 ->
+   7168, timed beside ``x @ W`` over the merged weight) at 8 rows.  Each is
    timed (profiler device time, L2
    flushed before every launch; CUDA events for a function whose every
    trace comes back empty) beside the plain version and, where one
@@ -217,6 +221,8 @@ MOE_SLOTS = 8
 # nm and mask runs beside it (full width; the kernels and their shapes
 # per layer are those of the full model)
 NM_LAYERS = 10
+# the rows whose bits salr_spmm / qsalr_spmm must give alike at every M
+SALR_ROWS = (1, 4, 8, 33, 128)
 # deepseek_v3_671b's depth in run (E): the first layer of each LayerGroup
 # (61 layers, 6.7e11 weights, fit no card); every width is the published one
 DEEPSEEK_LAYERS = 2
@@ -395,6 +401,10 @@ def spmm_checks(torch, timer, gen, rows: list) -> dict:
                     if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
                         fail(f"{name} {dtype_name} {lname} M={m}: rel-L2 {err:.3e} "
                              f"> {TOL[dtype_name]:.0e}")
+                    if name == "salr_spmm" and dtype_name == "bfloat16" and m == 1024:
+                        _rows_bitwise(torch, f"salr_spmm bfloat16 {lname}",
+                                      lambda xs: ops.salr_matmul(xs, tbw, a, b_pad), x, y,
+                                      ms=SALR_ROWS, dispatches=True)
                     s = summary[name]
                     s["max_abs_err"] = max(s["max_abs_err"], abs_err)
                     es = y.element_size()
@@ -667,6 +677,10 @@ def qsalr_checks(torch, timer, gen, rows: list) -> dict:
                 if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
                     fail(f"qsalr_spmm {dtype_name} {lname} M={m}: rel-L2 {err:.3e} "
                          f"> {TOL[dtype_name]:.0e}")
+                if dtype_name == "bfloat16" and m == 1024:
+                    _rows_bitwise(torch, f"qsalr_spmm bfloat16 {lname}",
+                                  lambda xs: ops.qsalr_matmul(xs, q, a, b_pad), x, y,
+                                  ms=SALR_ROWS, dispatches=True)
                 summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
                 es = y.element_size()
                 # x, the words, nnz/2 code bytes, one f32 scale per cell,
@@ -833,19 +847,35 @@ def _same_bits(torch, a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
 
 
-def _rows_bitwise(torch, what: str, fn, x, y) -> None:
-    """A row's bits do not depend on M: fn's first 1, 4, 8, 33 and 100 rows
-    computed alone equal the same rows of ``y = fn(x)`` at x's M (1024: the
-    split-K kernels' rows dispatch, the smaller M their slices dispatch),
-    and a second call on x gives y's bits."""
-    for mm in (1, 4, 8, 33, 100):
+def _rows_bitwise(torch, what: str, fn, x, y, ms=(1, 4, 8, 33, 100),
+                  dispatches: bool = False) -> None:
+    """A row's bits do not depend on M: fn's first ``ms`` rows computed
+    alone equal the same rows of ``y = fn(x)`` at x's M (1024: the split-K
+    kernels' rows dispatch, the smaller M their slices dispatch), and a
+    second call on x gives y's bits.  ``dispatches``: so do the calls on x
+    with each of the two split-K dispatches forced (``ops._walks_rows``)."""
+    from repro_torch.kernels import ops
+
+    for mm in ms:
         if not _same_bits(torch, fn(x[:mm]), y[:mm]):
             fail(f"{what}: rows computed at M={mm} differ from the same rows at "
                  f"M={x.shape[0]}")
     if not _same_bits(torch, fn(x), y):
         fail(f"{what}: two calls on the same inputs differ")
-    print(f"phase 2: {what}: rows at M = 1, 4, 8, 33, 100 bitwise equal to the same rows "
-          f"at M = {x.shape[0]}; two calls bitwise equal")
+    forced = ""
+    if dispatches:
+        picked = ops._walks_rows
+        try:
+            for walk_rows in (True, False):
+                ops._walks_rows = lambda *a, _w=walk_rows: _w
+                if not _same_bits(torch, fn(x), y):
+                    fail(f"{what}: the {'rows' if walk_rows else 'slices'} dispatch forced "
+                         f"gives other bits at M={x.shape[0]}")
+        finally:
+            ops._walks_rows = picked
+        forced = "; the rows and the slices dispatch forced bitwise equal"
+    print(f"phase 2: {what}: rows at M = {', '.join(map(str, ms))} bitwise equal to the "
+          f"same rows at M = {x.shape[0]}; two calls bitwise equal{forced}")
 
 
 # granite_moe_1b_a400m's expert stacks: (K, N) of gate/up and of down
@@ -1179,6 +1209,61 @@ def deepseek_moe_checks(torch, timer, gen, rows: list) -> None:
         rows.append(row)
         print(_row_line(row))
     print("phase 2: deepseek_v3_671b expert stacks (E 256): grouped == decode bitwise per row")
+
+
+# deepseek_v3_671b's wo: 128 heads x v_head_dim 128 -> d_model 7168
+DS_WO = (16384, 7168)
+
+
+def deepseek_wo_check(torch, timer, gen, rows: list) -> None:
+    """``salr_spmm`` in bf16 at deepseek_v3_671b's widest K, its wo (16384 ->
+    7168, tile 256, R 128), at the engine's 8 slots: within the bf16 limit
+    (the split-K base walks two slices of 8192 K rows, its accumulator
+    flushed every 256), timed beside its plain version and one library
+    call, ``x @ W`` over the merged weight W_hat + A_cat B_cat (decoded
+    ahead, rounded once to bf16)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import salr
+    from repro_torch.kernels import ops, ref
+
+    (k, n), m, dt = DS_WO, 8, torch.bfloat16
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    tbw, _ = salr._tiled_encode(w.to(dt), salr.SALRConfig(dtype="bfloat16"))
+    del w
+    a = (torch.randn((k, R_CAT), generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+    b = ops._pad_bcat((torch.randn((R_CAT, n), generator=gen, device="cuda")
+                       / math.sqrt(R_CAT)).to(dt), tbw.cols)
+    x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
+    y, y_ref = ops.salr_matmul(x, tbw, a, b), ref.salr_spmm_ref(x, tbw, a, b)
+    torch.cuda.synchronize()
+    err = rel_l2(torch, y, y_ref)
+    if not (err <= TOL["bfloat16"]) or not torch.isfinite(y).all():
+        fail(f"salr_spmm deepseek wo M={m}: rel-L2 {err:.3e} > {TOL['bfloat16']:.0e}")
+    nnz = int(bm.unpack_bits(tbw.words.reshape(-1, tbw.tile // 32), tbw.tile).sum())
+    # x, the words, the nnz stored values, A and B, y
+    nbytes = m * k * 2 + tbw.words.numel() * 4 + nnz * 2 + (k + n) * R_CAT * 2 + m * n * 2
+    flops = 2 * m * (nnz + R_CAT * (k + n))
+    bound, by = _bound(nbytes, flops, "bfloat16")
+    merged = (salr.materialize_base(tbw).float() + a.float() @ b.float()).to(dt)
+    row = {"kernel": "salr_spmm", "dtype": "bfloat16", "layer": "deepseek wo", "M": m, "K": k,
+           "N_pad": tbw.cols, "tile": tbw.tile, "cap_t": tbw.cap_t, "rel_l2": err,
+           "max_abs_err": (y.float() - y_ref.float()).abs().max().item(), "bytes": nbytes,
+           "flops": flops, "bound_ms": bound, "bound_by": by,
+           "ms": timer.ms(lambda: ops.salr_matmul(x, tbw, a, b)),
+           "plain_ms": Timer(torch, iters=3, traces=1).ms(
+               lambda: ref.salr_spmm_ref(x, tbw, a, b)),
+           "library_ms": timer.ms(lambda: x @ merged)}
+    del merged
+    # at this K the plain version's own f32 u can round to bf16 the other
+    # way from the exact sum, so both are also held to an f64 result
+    # (reported, not a limit)
+    u64 = x.double() @ a.double()
+    exact = (x.double() @ salr.materialize_base(tbw).double()
+             + u64.to(dt).double() @ b.double()).to(dt)
+    row["f64_rel_l2"] = {"kernel": rel_l2(torch, y, exact), "plain": rel_l2(torch, y_ref, exact)}
+    rows.append(row)
+    print(_row_line(row) + "; against f64: kernel {kernel:.2e}, plain {plain:.2e}".format(
+        **row["f64_rel_l2"]))
 
 
 def _ds_grouped_mm(torch, st, a, b, xd, row_e):
@@ -2191,9 +2276,12 @@ def tick_profile(torch, eng, prompts) -> dict:
               f"{windows} windows; the device split is not measured")
     by_name = best[1]
     busy_ms = sum(by_name.values()) / n / 1e3
-    # salr_spmm.cu's two ops share kernel names; the NF4 loader in the
-    # template arguments marks qsalr_spmm's, so it is matched first (after
-    # the expert kernels, whose row map names them: the scalar body's
+    # salr_spmm.cu's bf16 kernels carry their op's name (qsalr_spmm_kernel_*,
+    # salr_spmm_kernel_*: its split-K slices pass with u's blocks, its sum +
+    # adapter pass, its u pass and its rows walk), and the f32 scalar body
+    # names its op by the NF4 loader in its template arguments; qsalr_spmm
+    # is matched first, since salr_spmm_kernel is a substring of its names
+    # (after the expert kernels, whose row map names them: the scalar body's
     # moe_*_kernel<T, W, Map> and the tensor-core body's moe_mma_*_kernel<W,
     # Map, FAST> alike).  The nm_spmm_kernel and nf4_spmm_kernel prefixes
     # cover each op's split-K kernels (*_splitk, *_rows), its own reduce
@@ -2201,7 +2289,7 @@ def tick_profile(torch, eng, prompts) -> dict:
     # pass (*_u), its output pass (*_out) and its f32 column GEMM
     families = {"grouped expert kernels": ("TileMap",),
                 "decode-grid expert kernels": ("RowMap",),
-                "qsalr_spmm": ("NF4Values",),
+                "qsalr_spmm": ("qsalr_spmm_kernel", "NF4Values"),
                 "salr_spmm": ("salr_spmm_kernel", "adapter_u_kernel"),
                 "nm_spmm": ("nm_spmm_kernel",),
                 "fused_lora": ("fused_lora_kernel",),
@@ -2280,6 +2368,7 @@ def main(argv=None) -> int:
         methods = method_checks(torch, timer, gen, rows)
         moe_k = moe_checks(torch, timer, gen, rows)
         deepseek_moe_checks(torch, timer, gen, rows)
+        deepseek_wo_check(torch, timer, gen, rows)
     print(f"phase 2: every kernel agrees with its plain version "
           f"({time.perf_counter() - t_start:.1f}s); {Timer.by_events} timed functions "
           f"fell back to CUDA events")

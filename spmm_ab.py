@@ -10,7 +10,10 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
 (default: all), and prints one JSON line tagged LABEL:
 
 - ``tiled``: ``salr_spmm``, ``qsalr_spmm`` and ``bitmap_spmm`` at
-  smollm_135m's four projection shapes at M = 4 and 8;
+  smollm_135m's four projection shapes at M = 4, 8 and 1024 (with
+  ``--dispatch``: 4, 8 and 256 to 1024), and
+  ``salr_spmm`` and ``qsalr_spmm`` at deepseek_v3_671b's wo (16384 ->
+  7168) and gate/up (7168 -> 18432) at M = 8 (R = 128);
 - ``splitk``: ``nm_spmm`` and ``nf4_spmm`` at smollm_135m's wo and down
   at M = 4, 8 and 256 to 1024, ``nm_spmm`` at granite_moe_1b_a400m's wo
   at M = 8 and 256 to 1024;
@@ -25,15 +28,21 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
   family's grouped and decode kernels at 8 tokens;
 - ``deepseek``: ``grouped_salr_spmm`` and ``decode_salr_spmm`` at
   deepseek_v3_671b's gate/up and down stacks (E 256, top-8, R = 128,
-  ``chip_smoke._ds_stack``) at 8 tokens (64 rows).
+  ``chip_smoke._ds_stack``) at 8 tokens (64 rows);
+- ``host``: the host's microseconds per call (host clock over 300 calls,
+  one synchronize, best of 5) of ``salr_matmul``, ``qsalr_matmul`` and,
+  as a control, ``nm_matmul`` at smollm_135m's gate/up (down for
+  ``nm_matmul``) at M = 4, where the device finishes each call before
+  the host has issued the next: the wrapper's cost, which sets a
+  host-bound decode tick.
 
-Each split-K call (``splitk``, ``lora``) and each expert call
-(``experts``, ``deepseek``) is also split by the kernels it launches; an
-expert call also gives its rel-L2 against its plain version.
-``--plan-sms N`` cuts K for ``nm_spmm`` and ``nf4_spmm`` as on a card
-of N SMs (``ops.splitk_plan``) instead of this card's count;
-``--dispatch`` takes their rows or their slices dispatch at every M
-instead of the one ``ops._splitk_args`` picks.  To compare two
+Each call but ``bitmap_spmm``'s is also split by the kernels it launches;
+an expert call also gives its rel-L2 against its plain version.
+``--plan-sms N`` cuts K for ``nm_spmm``, ``nf4_spmm``, ``salr_spmm`` and
+``qsalr_spmm`` as on a card of N SMs (``ops.splitk_plan``) instead of
+this card's count; ``--dispatch`` takes their rows or their slices
+dispatch at every M instead of the one ``ops._walks_rows`` picks (a
+tree that has it).  To compare two
 versions, unpack each into its own directory (``git archive``) and
 alternate their runs, one process each, back to back on one GPU.
 """
@@ -54,7 +63,7 @@ from repro_torch.core import salr  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 assert Path(ops.__file__).resolve().is_relative_to(root)
-GROUPS = ("tiled", "splitk", "lora", "experts", "deepseek")
+GROUPS = ("tiled", "splitk", "lora", "experts", "deepseek", "host")
 only = (sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv
         else GROUPS)
 assert set(only) <= set(GROUPS), only
@@ -63,15 +72,7 @@ if "--plan-sms" in sys.argv:
     ops._sm_count = lambda device: plan_sms
 if "--dispatch" in sys.argv:
     walk_rows = sys.argv[sys.argv.index("--dispatch") + 1] == "rows"
-    picked = ops._splitk_args
-
-    def forced(x2, k, n):
-        ws, slices, slice_k = picked(x2, k, n)
-        if walk_rows:
-            return None, slices, slice_k
-        return (torch.empty((slices, x2.shape[0], n), dtype=torch.float32, device=x2.device),
-                slices, slice_k)
-    ops._splitk_args = forced
+    ops._walks_rows = lambda *args: walk_rows
 build.build_all()
 timer = cs.Timer(torch)
 
@@ -97,22 +98,32 @@ gen = torch.Generator(device="cuda").manual_seed(0)
 out = {}
 # up to 1024 around where the split-K dispatches cross (PERF.md)
 BIG = (256, 384, 512, 576, 640, 768, 896, 960, 1024)
+# the tiled group's M at smollm's shapes: swept with a dispatch forced
+tiled_rows = (4, 8, *BIG) if "--dispatch" in sys.argv else (4, 8, 1024)
 with torch.inference_mode():
     if "tiled" in only:
-        for lname, (k, n) in {"wq/wo": (576, 576), "wk/wv": (576, 192),
-                              "gate/up": (576, 1536), "down": (1536, 576)}.items():
+        shapes = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/up": (576, 1536),
+                  "down": (1536, 576), "deepseek wo": (16384, 7168),
+                  "deepseek gate/up": (7168, 18432)}
+        for lname, (k, n) in shapes.items():
             w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
             tbw, _ = salr._tiled_encode(w, salr.SALRConfig(dtype="bfloat16"))
+            del w
             q, _ = bm.tile_quantize_nf4(tbw)
             a = (torch.randn((k, 128), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
             b = ops._pad_bcat((torch.randn((128, n), generator=gen, device="cuda")
                                / 12).bfloat16(), tbw.cols)
-            for m in (4, 8):
+            deepseek = lname.startswith("deepseek")
+            for m in (8,) if deepseek else tiled_rows:
                 x = (torch.randn((m, k), generator=gen, device="cuda") / 4).bfloat16()
-                out[f"{lname} M={m}"] = {
-                    "salr": timer.ms(lambda: ops.salr_matmul(x, tbw, a, b)),
-                    "qsalr": timer.ms(lambda: ops.qsalr_matmul(x, q, a, b)),
-                    "bitmap": timer.ms(lambda: ops.bitmap_matmul(x, tbw))}
+                fns = {"salr": lambda: ops.salr_matmul(x, tbw, a, b),
+                       "qsalr": lambda: ops.qsalr_matmul(x, q, a, b)}
+                if not deepseek:
+                    fns["bitmap"] = lambda: ops.bitmap_matmul(x, tbw)
+                out[f"tiled {lname} M={m}"] = {kk: timer.ms(fn) for kk, fn in fns.items()}
+                for kk in ("salr", "qsalr"):
+                    out[f"tiled {lname} M={m} {kk} by kernel"] = ms_by_kernel(fns[kk])
+            del tbw, q
     # fused_lora's plan is taken at every M: timed from decode up
     lora_rows = (4, 8, 16, 32, 48, 64, 96, 128, 256, 512, 1024)
     shapes = (("wo", (576, 576), ("nm", "nf4", "lora")),
@@ -206,4 +217,30 @@ with torch.inference_mode():
                 out[f"{key} by kernel"] = ms_by_kernel(fn)
                 out[f"{key} rel_l2"] = cs.rel_l2(torch, fn(), plain[route]())
             del st, a, b
+    if "host" in only:
+        import time
+        w = (torch.randn((576, 1536), generator=gen, device="cuda") / 24).bfloat16()
+        tbw, _ = salr._tiled_encode(w, salr.SALRConfig(dtype="bfloat16"))
+        q, _ = bm.tile_quantize_nf4(tbw)
+        nmw, _ = bm.nm_encode((torch.randn((1536, 576), generator=gen, device="cuda")
+                               / 40).bfloat16())
+        a = (torch.randn((576, 128), generator=gen, device="cuda") / 24).bfloat16()
+        b = (torch.randn((128, 1536), generator=gen, device="cuda") / 12).bfloat16()
+        x = (torch.randn((4, 576), generator=gen, device="cuda") / 4).bfloat16()
+        xd = (torch.randn((4, 1536), generator=gen, device="cuda") / 4).bfloat16()
+        fns = {"salr": lambda: ops.salr_matmul(x, tbw, a, b),
+               "qsalr": lambda: ops.qsalr_matmul(x, q, a, b),
+               "nm": lambda: ops.nm_matmul(xd, nmw)}
+        for kk, fn in fns.items():
+            best = float("inf")
+            for _ in range(5):
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(300):
+                    fn()
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) / 300 * 1e6)
+            out[f"host us per call {kk}"] = best
 print(json.dumps({"tree": sys.argv[2], **out}))

@@ -25,27 +25,32 @@
 namespace salr {
 namespace splitk {
 
-// A thread's fixed 16-byte chunk of a FAST stream, found once for the
+// A thread's fixed W-byte chunk of a FAST stream, found once for the
 // walk: the byte offsets of its source from the step's first row and of
 // its place in a stage; r < 0: none.  The step's rows from kn on are not
 // copied.
-struct Chunk16 {
+template <int W>
+struct FixedChunk {
   int r = -1;
   uint32_t src = 0, dst = 0;
-  Chunk16() = default;
-  __device__ Chunk16(int i, int rows, int bytes, uint32_t stride, int pitch) {
-    const int per_row = bytes / 16;
+  FixedChunk() = default;
+  __device__ FixedChunk(int i, int rows, int bytes, uint32_t stride, int pitch) {
+    const int per_row = bytes / W;
     if (i < rows * per_row) {
       r = i / per_row;
-      const int c = (i - r * per_row) * 16;
+      const int c = (i - r * per_row) * W;
       src = r * stride + c;
       dst = r * pitch + c;
     }
   }
   __device__ __forceinline__ void copy(void* stage, const char* step, int kn) const {
-    if (r >= 0 && r < kn) copy_chunk<16>(static_cast<char*>(stage) + dst, step + src);
+    if (r >= 0 && r < kn) copy_chunk<W>(static_cast<char*>(stage) + dst, step + src);
   }
 };
+using Chunk16 = FixedChunk<16>;
+// A cell's words: 8-byte chunks, so that rows of an even number of words
+// (a 192-column tile's 6) copy FAST too
+using WordChunk = FixedChunk<8>;
 
 // x's rows named by a list: row i of the block is row rows[i] of a
 // row-major (., ld) bf16 x, zero where rows[i] < 0 (past the chunk).
@@ -192,11 +197,12 @@ struct __align__(16) PlainCells {
 // the expert.  A set bit's value sits at the popcount of its cell's earlier
 // words and of the bits below it in its word, clamped to cap_t - 1; it is
 // copied as stored (the stored values are the decoded weights), a clear
-// bit gives +0, so the tile equals tile_decode's bit for bit.  FAST: wpt a
-// multiple of 4, cap_t of 8 and the pointers 16-byte aligned, so each
-// thread copies fixed 16-byte chunks (words: one; values: up to VCHUNKS)
-// at the same place every step (then both words always lie in one tile,
-// and the stage holds one cell: 4 stages take 72 KB, two blocks fit an SM).
+// bit gives +0, so the tile equals tile_decode's bit for bit.  FAST: wpt
+// even, cap_t a multiple of 8 and the pointers 16-byte aligned, so each
+// thread copies fixed chunks (words: one of 8 bytes; values: up to VCHUNKS
+// of 16) at the same place every step (then both words always lie in one
+// tile, and the stage holds one cell: 4 stages take 72 KB, two blocks fit
+// an SM).
 template <bool FAST>
 struct PlainCellTile : BlockWords {
   static constexpr int VCHUNKS = BK * MAX_CAP * 2 / 16 / THREADS;  // a step's values at cap_t 256
@@ -205,14 +211,15 @@ struct PlainCellTile : BlockWords {
   const uint32_t* __restrict__ words;
   const uint16_t* __restrict__ values;
   int n_tiles, wpt, cap_t;
-  Chunk16 wc, vc[FAST ? VCHUNKS : 1];  // FAST: a thread's words / values chunks
+  WordChunk wc;                // FAST: a thread's words chunk
+  Chunk16 vc[FAST ? VCHUNKS : 1];  // FAST: its values chunks
   __device__ PlainCellTile(const uint32_t* words_, const PlainValues<bf16>& v, int n_tiles_,
                            int wpt_, int block)
       : BlockWords(n_tiles_, wpt_, block), words(words_),
         values(reinterpret_cast<const uint16_t*>(v.values)), n_tiles(n_tiles_), wpt(wpt_),
         cap_t(v.cap_t) {
     if constexpr (FAST) {
-      wc = Chunk16(threadIdx.x, BK, wpt * 4, n_tiles * wpt * 4, MAX_WPT * 4);
+      wc = WordChunk(threadIdx.x, BK, wpt * 4, n_tiles * wpt * 4, MAX_WPT * 4);
 #pragma unroll
       for (int q = 0; q < VCHUNKS; ++q)
         vc[q] = Chunk16(threadIdx.x + q * THREADS, BK, cap_t * 2, n_tiles * cap_t * 2,
@@ -268,8 +275,8 @@ struct PlainCellTile : BlockWords {
 // expert.  A set bit's slot as above; its value the NF4 level of the slot's
 // code x the cell's scale in f32, rounded once to bf16 (the reference
 // rounds the decoded weight to x's dtype before its product).  FAST: wpt
-// and cap_t / 2 multiples of 4 and 16 bytes, the pointers 16-byte aligned,
-// so each thread copies one fixed chunk a stream and step (then both words
+// even, cap_t / 2 a multiple of 16 bytes, the pointers 16-byte aligned, so
+// each thread copies one fixed chunk a stream and step (then both words
 // always lie in one tile).
 template <bool FAST>
 struct NF4CellTile : BlockWords {
@@ -279,15 +286,16 @@ struct NF4CellTile : BlockWords {
   const float* __restrict__ scales;
   const float* lut;  // the 16 levels in shared memory
   int n_tiles, wpt, cap_t;
-  Chunk16 wc, cc;  // FAST: a thread's words / codes chunk
-  Chunk<4> sc;     // FAST: its scale
+  WordChunk wc;  // FAST: a thread's words chunk
+  Chunk16 cc;    // FAST: its codes chunk
+  Chunk<4> sc;   // FAST: its scale
   // words and v.codes / v.scales at the expert, v.lut in shared memory
   __device__ NF4CellTile(const uint32_t* words_, const NF4Values<bf16>& v, int n_tiles_,
                          int wpt_, int block)
       : BlockWords(n_tiles_, wpt_, block), words(words_), codes(v.codes), scales(v.scales),
         lut(v.lut), n_tiles(n_tiles_), wpt(wpt_), cap_t(v.cap_t) {
     if constexpr (FAST) {
-      wc = Chunk16(threadIdx.x, BK, wpt * 4, n_tiles * wpt * 4, MAX_WPT * 4);
+      wc = WordChunk(threadIdx.x, BK, wpt * 4, n_tiles * wpt * 4, MAX_WPT * 4);
       cc = Chunk16(threadIdx.x, BK, cap_t / 2, n_tiles * (cap_t / 2), CODES_PITCH);
       sc = Chunk<4>(BK, 4);
     }

@@ -30,7 +30,8 @@
 //      sums the slices in slice order (one round of 16-byte loads), rounds
 //      u once to bf16 into shared memory beside a (R, 64) column tile of
 //      B_cat copied with cp.async, and multiplies the two with ldmatrix
-//      fragments, R / 16 k16 steps (8 at R = 128); writes y once.
+//      fragments, R / 16 k16 steps (8 at R = 128); writes y once.  The
+//      product is adapter_mma.cuh's, which salr_spmm.cu shares.
 // Why at most 8 slices, and one dispatch (the spmm_ab.py sweep of M = 4 to
 // 1024 on an H100, PERF.md): every output block sums every slice of its
 // rows, so the 48 one-step slices of splitk_plan cost more in that sum
@@ -48,14 +49,13 @@
 // 80GB HBM3, 700.00 W; spmm_ab.py, PERF.md).  f32 keeps that column GEMM:
 // f32 is held at 1e-5, which TF32 tensor cores cannot meet.  Up to
 // MAX_RANK = 256 (ops.LORA_MAX_RANK).
+#include "adapter_mma.cuh"
 #include "column_gemm.cuh"
-#include "splitk_gemm.cuh"
 
 namespace {
 
 using salr::splitk::bf16;
-
-constexpr int MAX_RANK = 256;
+using salr::splitk::MAX_RANK;
 
 // f32: the column GEMM.  Every block computes u for its 8 rows into shared
 // memory (thread t owning u's columns t, t + 128, ...), rounds it, then
@@ -117,99 +117,21 @@ fused_lora_kernel_u(const bf16* __restrict__ x, const bf16* __restrict__ a,
   salr::splitk::slices_block<FAST>(s.xs, s.raw, s.raw[0], tile, x, ws, M, K, R, slice_k);
 }
 
-// bf16, pass 2: u rounded to bf16 (all R of the block's rows) and B_cat's
-// (R, 64) column tile, zero-padded to whole k16 steps.
-constexpr int ULD = MAX_RANK + 8;  // u row pitch (bf16): ldmatrix rows on distinct banks
-
-struct OutShared {
-  uint16_t u[salr::splitk::BM][ULD];
-  uint16_t b[MAX_RANK][salr::splitk::WLD];
-};
-
-// u[i / R][i % R] = bf16(ws[0][i] + ws[1][i] + ... + ws[S-1][i]) for the
-// `live` entries i of the block's rows (each slice MR floats from ws), f32
-// in slice order.  With R a multiple of 4, a thread sums 4 neighbouring
-// entries, SB slices' 16-byte loads made before their adds (one round of
-// loads at the plan's at most 8 slices).
-__device__ __forceinline__ void sum_u(uint16_t (*u)[ULD], const float* __restrict__ ws, int S,
-                                      size_t MR, int live, int R) {
-  constexpr int SB = 8;  // ops.LORA_SLICES
-  constexpr int T = salr::splitk::THREADS;
-  if (R % 4) {  // one entry at a time
-    for (int i = threadIdx.x; i < live; i += T) {
-      float t = ws[i];
-      for (int sl = 1; sl < S; ++sl) t += ws[sl * MR + i];
-      u[i / R][i % R] = __bfloat16_as_ushort(__float2bfloat16(t));
-    }
-    return;
-  }
-  const int q = R / 4;  // ws 16-byte aligned: R floats a row
-  for (int i = threadIdx.x; i < live / 4; i += T) {
-    const int row = i / q, c = (i - row * q) * 4;
-    const float* src = ws + static_cast<size_t>(row) * R + c;
-    float4 t = *reinterpret_cast<const float4*>(src);
-    for (int s0 = 1; s0 < S; s0 += SB) {
-      float4 v[SB];
-#pragma unroll
-      for (int j = 0; j < SB; ++j)
-        if (s0 + j < S) v[j] = *reinterpret_cast<const float4*>(src + (s0 + j) * MR);
-#pragma unroll
-      for (int j = 0; j < SB; ++j) {
-        if (s0 + j < S) {
-          t.x += v[j].x;
-          t.y += v[j].y;
-          t.z += v[j].z;
-          t.w += v[j].w;
-        }
-      }
-    }
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(t.x, t.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(t.z, t.w);
-    *reinterpret_cast<uint2*>(&u[row][c]) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                                                       *reinterpret_cast<const uint32_t*>(&hi));
-  }
-}
-
+// bf16, pass 2: block (64 output columns, 64 rows) multiplies its rows of
+// u, summed from the slices and rounded once, by B_cat's column tile
+// (adapter_mma.cuh) and writes y once.
 template <bool FAST>
 __global__ void __launch_bounds__(salr::splitk::THREADS, salr::splitk::MIN_BLOCKS)
 fused_lora_kernel_out(const float* __restrict__ ws, const bf16* __restrict__ b,
                       bf16* __restrict__ y, int S, int M, int R, int N) {
   using namespace salr::splitk;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& s = *reinterpret_cast<OutShared*>(smem);
+  auto& s = *reinterpret_cast<AdapterShared*>(smem);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int width = min(BN, N - n0), rp = (R + 15) / 16 * 16;
-  // B_cat's rows [0, R) at the tile's columns, zero past N and on [R, rp)
-  const char* src = reinterpret_cast<const char*>(b + n0);
-  if constexpr (FAST) {
-    for (int i = threadIdx.x; i < R * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 16;
-      char* d = reinterpret_cast<char*>(s.b[r]) + c;
-      if (c < width * 2) copy_chunk<16>(d, src + static_cast<size_t>(r) * N * 2 + c);
-      else zero_chunk<16>(d);
-    }
-  } else {
-    copy_rows(s.b, WLD * 2, src, static_cast<size_t>(N) * 2, R, BN * 2, width * 2);
-  }
-  for (int i = threadIdx.x; i < (rp - R) * (WLD / 8); i += THREADS)
-    *reinterpret_cast<uint4*>(&s.b[R + i / (WLD / 8)][8 * (i % (WLD / 8))]) =
-        make_uint4(0u, 0u, 0u, 0u);
-  cp_async_commit();
-  // u = the slices' sum in slice order, rounded once; zero past M and R
-  const int rows = min(BM, M - m0);
-  for (int i = threadIdx.x; i < (BM - rows) * rp; i += THREADS)
-    s.u[rows + i / rp][i % rp] = 0;
-  for (int i = threadIdx.x; i < rows * (rp - R); i += THREADS)
-    s.u[i / (rp - R)][R + i % (rp - R)] = 0;
-  sum_u(s.u, ws + static_cast<size_t>(m0) * R, S, static_cast<size_t>(M) * R, rows * R, R);
-  cp_async_wait<0>();
-  __syncthreads();
-  float acc[WN / 8][4] = {};
-  if (m0 + warp_row0() < M) {
-    for (int kk = 0; kk < rp; kk += 16) mma_k16<ULD>(s.u, s.b, kk, acc);
-  }
+  float acc[WN / 8][4];
+  adapter_product<FAST>(s, ws, S, b, M, R, N, m0, n0, acc);
   bf16* out = y + n0;
-  for_each_out(acc, m0, M, width, [&](int row, int col, float v) {
+  for_each_out(acc, m0, M, min(BN, N - n0), [&](int row, int col, float v) {
     out[static_cast<size_t>(row) * N + col] = __float2bfloat16(v);
   });
 }
@@ -223,7 +145,7 @@ int launch_bf16(const void* x, const void* a, const void* b, void* y, void* ws, 
       dim3((R + BN - 1) / BN, (M + BM - 1) / BM, slices), stream, static_cast<const bf16*>(x),
       static_cast<const bf16*>(a), wsf, M, K, R, slice_k);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_with_smem<fused_lora_kernel_out<FAST>, OutShared>(
+  return static_cast<int>(launch_with_smem<fused_lora_kernel_out<FAST>, AdapterShared>(
       dim3((N + BN - 1) / BN, (M + BM - 1) / BM), stream, wsf, static_cast<const bf16*>(b),
       static_cast<bf16*>(y), slices, M, R, N));
 }

@@ -165,17 +165,7 @@ def salr_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight,
     if _placement(name, x2, tbw.words, tbw.values, a_cat, b_cat) == "cpu":
         y = ref.salr_spmm_ref(x2, tbw, a_cat, b_cat)
     else:
-        if a_cat.dtype != x2.dtype or b_cat.dtype != x2.dtype:
-            raise TypeError(f"{name}: adapters must be {x2.dtype}")
-        code = _check_cuda(name, x2.dtype, tbw.words, tbw.values, a_cat, b_cat)
-        m, k = x2.shape
-        u = torch.empty((m, r), dtype=x2.dtype, device=x2.device)
-        y = torch.empty((m, tbw.cols), dtype=x2.dtype, device=x2.device)
-        if m:
-            _launch(name, x2.device, x2.data_ptr(), tbw.words.data_ptr(),
-                    tbw.values.data_ptr(), a_cat.data_ptr(), b_cat.data_ptr(),
-                    u.data_ptr(), y.data_ptr(), m, k, r, tbw.n_tiles,
-                    tbw.tile // 32, tbw.cap_t, code)
+        y = _launch_salr(name, x2, tbw, (tbw.words, tbw.values), a_cat, b_cat, r)
     return y.reshape(*lead, tbw.cols)
 
 
@@ -204,17 +194,30 @@ def _sm_count(device: torch.device) -> int:
 SPLITK_ROWS_BYTES_PER_STEP = 400_000
 
 
+# The same switch for the bf16 salr_spmm / qsalr_spmm: a bitmap step takes
+# about twice a 2:4 step, so the partials pay for longer (the spmm_ab.py
+# --dispatch sweep of M = 4 to 1024 at smollm's four shapes: the least
+# summed time of the 88 calls, PERF.md)
+SALR_ROWS_BYTES_PER_STEP = 750_000
+
+
+def _walks_rows(m: int, k: int, n: int, slices: int,
+                bytes_per_step: int = SPLITK_ROWS_BYTES_PER_STEP) -> bool:
+    """Whether a bf16 split-K launch at M = ``m`` takes the rows dispatch
+    (a block per (column tile, row tile) walks every slice in order) over
+    the slices one (a block per slice writes its f32 partial, a second pass
+    sums them in slice order): once the (slices, M, N) partials pass
+    ``bytes_per_step`` per pipeline step of K.  Both give the same bits."""
+    return slices * m * n * 4 >= -(-k // build.SPLITK_BK) * bytes_per_step
+
+
 def _splitk_args(x2: torch.Tensor, k: int, n: int) -> tuple:
-    """(workspace, slices, slice_k) of a bf16 split-K launch.  While the
-    slices' partials are small, a (slices, M, N) f32 workspace: a block per
-    (column tile, row tile, slice) writes its partial there and a reduce
-    pass sums them in slice order.  Otherwise None (a null pointer): a
-    block per (column tile, row tile) walks every slice in order.  Both
-    give the same bits."""
+    """(workspace, slices, slice_k) of a bf16 nm_spmm / nf4_spmm launch:
+    the (slices, M, N) f32 workspace of the slices dispatch, or None (a null
+    pointer) for the rows dispatch (:func:`_walks_rows`)."""
     slices, slice_k = splitk_plan(k, n, _sm_count(x2.device))
     m = x2.shape[0]
-    steps = -(-k // build.SPLITK_BK)
-    if slices * m * n * 4 >= steps * SPLITK_ROWS_BYTES_PER_STEP:
+    if _walks_rows(m, k, n, slices):
         return None, slices, slice_k
     ws = torch.empty((slices, m, n), dtype=torch.float32, device=x2.device)
     return ws, slices, slice_k
@@ -277,6 +280,80 @@ def lora_plan(k: int) -> tuple:
     steps = max(1, -(-k // build.SPLITK_BK))
     per = -(-steps // LORA_SLICES)
     return -(-steps // per), per * build.SPLITK_BK
+
+
+# K rows an f32 accumulator of the bf16 salr_spmm / qsalr_spmm kernels runs
+# over at most, 8 pipeline steps (csrc/salr_spmm.cu CHUNK_K): one
+# tensor-core accumulator over deepseek's K = 7168 drifts to 4.5e-4 of the
+# 5e-4 limit (PERF.md)
+SALR_CHUNK_K = 8 * build.SPLITK_BK
+# blocks of the bf16 salr_spmm / qsalr_spmm base kernels resident on an SM
+# (csrc/splitk_gemm.cuh MIN_BLOCKS: 97 KB of shared memory and <= 128
+# registers a thread each)
+SALR_BLOCKS_PER_SM = 2
+
+
+def salr_plan(k: int, n: int, sms: int) -> tuple:
+    """(slices, slice_k) of the bf16 salr_spmm / qsalr_spmm base product:
+    :func:`splitk_plan`'s where its slices are at most ``SALR_CHUNK_K``
+    rows.  Longer slices are made whole ``SALR_CHUNK_K``-row chunks (the
+    kernel flushes its accumulator every chunk, on one grid in both
+    dispatches), as many to a slice as keep the card's waves of
+    ``SALR_BLOCKS_PER_SM`` blocks an SM full: splitk_plan fills one wave at
+    least, but deepseek's gate/up (288 column blocks) gets one slice of all
+    224 steps, 1.09 waves, so its last 24 blocks walk a second wave alone.
+    The fewest slices whose waves x steps come within 5% of the least.  A
+    function of (K, N) and the card alone, never of M."""
+    slices, slice_k = splitk_plan(k, n, sms)
+    if slice_k <= SALR_CHUNK_K:
+        return slices, slice_k
+    bk, chunk = build.SPLITK_BK, SALR_CHUNK_K // build.SPLITK_BK
+    steps, cols = -(-k // bk), -(-n // build.SPLITK_BN)
+    slots = SALR_BLOCKS_PER_SM * sms
+
+    def cost(per: int) -> int:             # waves x steps a block
+        return -(-cols * -(-steps // per) // slots) * per
+
+    pers = range(chunk, -(-steps // chunk) * chunk + 1, chunk)
+    least = min(cost(per) for per in pers)
+    per = max(per for per in pers if cost(per) <= 1.05 * least)
+    return -(-steps // per), per * bk
+
+
+def _launch_salr(name: str, x2: torch.Tensor, tbw, leaves: tuple, a_cat: torch.Tensor,
+                 b_cat: torch.Tensor, r: int) -> torch.Tensor:
+    """Launch salr_spmm / qsalr_spmm on CUDA tensors; returns y (M, cols).
+    bf16: the base's K cut by :func:`salr_plan`, u's by :func:`lora_plan`,
+    one f32 scratch holding u's (u_slices, M, R) partials and, in the
+    slices dispatch, the base's (slices, M, N) ones.  f32 (the scalar
+    body): an (M, R) u scratch and no plan."""
+    if a_cat.dtype != x2.dtype or b_cat.dtype != x2.dtype:
+        raise TypeError(f"{name}: adapters must be {x2.dtype}")
+    code = _check_cuda(name, x2.dtype, *leaves, a_cat, b_cat)
+    m, k = x2.shape
+    n = tbw.cols
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    if not m:
+        return y
+    ws = None
+    plans = (0, 0, 0, 0)
+    if x2.dtype == torch.bfloat16:
+        slices, slice_k = salr_plan(k, n, _sm_count(x2.device))
+        u_slices, u_slice_k = lora_plan(k)
+        plans = (slices, slice_k, u_slices, u_slice_k)
+        rows = _walks_rows(m, k, n, slices, SALR_ROWS_BYTES_PER_STEP)
+        u_len = -(-u_slices * m * r // 4) * 4          # the base's partials 16-byte aligned
+        scratch = torch.empty(u_len + (0 if rows else slices * m * n), dtype=torch.float32,
+                              device=x2.device)
+        u = scratch.data_ptr()
+        if not rows:
+            ws = u + 4 * u_len
+    else:
+        u = torch.empty((m, r), dtype=x2.dtype, device=x2.device).data_ptr()
+    _launch(name, x2.device, x2.data_ptr(), *(t.data_ptr() for t in leaves), a_cat.data_ptr(),
+            b_cat.data_ptr(), u, y.data_ptr(), ws, m, k, r, tbw.n_tiles, tbw.tile // 32,
+            tbw.cap_t, *plans, code)
+    return y
 
 
 def lora_matmul(x: torch.Tensor, a_cat: torch.Tensor, b_cat: torch.Tensor) -> torch.Tensor:
@@ -450,17 +527,7 @@ def qsalr_matmul(x: torch.Tensor, q: bm.QTiledBitmapWeight,
     if _placement(name, x2, q.words, q.codes, q.scales, a_cat, b_cat) == "cpu":
         y = ref.qsalr_spmm_ref(x2, q, a_cat, b_cat)
     else:
-        if a_cat.dtype != x2.dtype or b_cat.dtype != x2.dtype:
-            raise TypeError(f"{name}: adapters must be {x2.dtype}")
-        code = _check_cuda(name, x2.dtype, q.words, q.codes, q.scales, a_cat, b_cat)
-        m, k = x2.shape
-        u = torch.empty((m, r), dtype=x2.dtype, device=x2.device)
-        y = torch.empty((m, q.cols), dtype=x2.dtype, device=x2.device)
-        if m:
-            _launch(name, x2.device, x2.data_ptr(), q.words.data_ptr(),
-                    q.codes.data_ptr(), q.scales.data_ptr(), a_cat.data_ptr(),
-                    b_cat.data_ptr(), u.data_ptr(), y.data_ptr(), m, k, r, q.n_tiles,
-                    q.tile // 32, q.cap_t, code)
+        y = _launch_salr(name, x2, q, (q.words, q.codes, q.scales), a_cat, b_cat, r)
     return y.reshape(*lead, q.cols)
 
 

@@ -38,23 +38,62 @@ def _close(y, y_ref, dtype) -> bool:
     return bool((y.float() - y_ref.float()).norm() <= TOL[dtype] * y_ref.float().norm())
 
 
+# salr_spmm / qsalr_spmm: rows computed at these M equal the same rows at
+# M = 1024 (the bf16 kernels' slices dispatch at decode, the rows dispatch
+# at M = 1024 where N is 192 or wider: ops._walks_rows)
+_SALR_ROWS = (1, 4, 8, 33, 128)
+# the split plans of other cards: one slice for all of K (1 SM), one
+# pipeline step a slice (1000 SMs)
+_PLANS = [pytest.param(None, id="card"), pytest.param(1, id="1sm"),
+          pytest.param(1000, id="1000sms")]
+
+
+def _salr_bitwise(fn, x, y, monkeypatch) -> None:
+    """Bitwise: fn's rows at every M of ``_SALR_ROWS`` equal the same rows
+    of y = fn(x) (x at M = 1024), and so do both split-K dispatches forced
+    (bf16; f32 takes none)."""
+    for m in _SALR_ROWS:
+        torch.testing.assert_close(fn(x[:m]), y[:m], rtol=0, atol=0)
+    picked = ops._walks_rows
+    for walk_rows in (True, False):
+        monkeypatch.setattr(ops, "_walks_rows", lambda *a, _w=walk_rows: _w)
+        torch.testing.assert_close(fn(x), y, rtol=0, atol=0)
+        torch.testing.assert_close(fn(x[:4]), y[:4], rtol=0, atol=0)
+    monkeypatch.setattr(ops, "_walks_rows", picked)
+
+
+# K = 100 keeps x off salr_spmm's FAST kernels (rows not a multiple of 16
+# bytes); K = 96 takes them wherever the tile has an even number of words
+_SALR_K = [pytest.param(100, id="k100"), pytest.param(96, id="k96")]
+
+
+@pytest.mark.parametrize("k", _SALR_K)
+@pytest.mark.parametrize("sms", _PLANS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile,cap_t", [(32, 32), (96, 72), (192, 128), (256, 160)])
-def test_spmm_kernels_match_plain(cuda, tile, cap_t, dtype):
+def test_spmm_kernels_match_plain(cuda, tile, cap_t, dtype, sms, k, monkeypatch):
+    """salr_spmm and bitmap_spmm against their plain versions at R = 24,
+    salr_spmm's rows bitwise independent of M and of the split-K dispatch,
+    under this card's plan and the plans of 1 and 1000 SMs."""
     gen = torch.Generator(device=cuda).manual_seed(tile)
-    k, n = 100, 2 * tile
+    n = 2 * tile
     w = (torch.randn((k, n), generator=gen, device=cuda) / 10).to(dtype)
     mask = prune.magnitude_mask(w, 0.5)
     tbw, _ = tbm.tile_encode(prune.apply_mask(w, mask), mask, tile, cap_t)
-    for m in (1, 5, 33, 100):
+    a = torch.randn((k, 24), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((24, n), generator=gen, device=cuda).to(dtype)
+    if sms is not None:
+        monkeypatch.setattr(ops, "_sm_count", lambda device: sms)
+    for m in (1, 5, 33, 100, 1024):
         x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
-        a = torch.randn((k, 24), generator=gen, device=cuda).to(dtype)
-        b = torch.randn((24, n), generator=gen, device=cuda).to(dtype)
         y = ops.salr_matmul(x, tbw, a, b)
         assert _close(y, ref.salr_spmm_ref(x, tbw, a, b), dtype)
         assert _close(ops.bitmap_matmul(x, tbw), ref.bitmap_spmm_ref(x, tbw), dtype)
         # row independence: a row's result does not depend on the batch
         torch.testing.assert_close(ops.salr_matmul(x[:1], tbw, a, b), y[:1], rtol=0, atol=0)
+    fn = lambda xs: ops.salr_matmul(xs, tbw, a, b)  # noqa: E731
+    _salr_bitwise(fn, x, y, monkeypatch)
+    _deterministic(fn, x, y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -78,23 +117,31 @@ def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, dtype):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("k", _SALR_K)
+@pytest.mark.parametrize("sms", _PLANS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile,cap_t", [(32, 32), (96, 72), (192, 128), (256, 160)])
-def test_qsalr_kernel_matches_plain_and_rows_are_independent(cuda, tile, cap_t, dtype):
+def test_qsalr_kernel_matches_plain_and_rows_are_independent(cuda, tile, cap_t, dtype, sms, k,
+                                                             monkeypatch):
+    """qsalr_spmm against its plain version at R = 24 and at R = 0, its rows
+    bitwise independent of M and of the split-K dispatch, under this
+    card's plan and the plans of 1 and 1000 SMs."""
     gen = torch.Generator(device=cuda).manual_seed(tile + 1)
-    k, n = 100, 2 * tile
+    n = 2 * tile
     w = (torch.randn((k, n), generator=gen, device=cuda) / 10).to(dtype)
     mask = prune.magnitude_mask(w, 0.5)
     tbw, _ = tbm.tile_encode(prune.apply_mask(w, mask), mask, tile, cap_t)
     q, _ = tbm.tile_quantize_nf4(tbw)
-    for m in (1, 4, 8, 33, 100):              # 4 and 8: the main path's decode batches
+    a = torch.randn((k, 24), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((24, n), generator=gen, device=cuda).to(dtype)
+    a0 = torch.zeros((k, 0), device=cuda, dtype=dtype)
+    b0 = torch.zeros((0, n), device=cuda, dtype=dtype)
+    if sms is not None:
+        monkeypatch.setattr(ops, "_sm_count", lambda device: sms)
+    for m in (1, 4, 8, 33, 100, 1024):        # 4 and 8: the main path's decode batches
         x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
-        a = torch.randn((k, 24), generator=gen, device=cuda).to(dtype)
-        b = torch.randn((24, n), generator=gen, device=cuda).to(dtype)
         y = ops.qsalr_matmul(x, q, a, b)
         assert _close(y, ref.qsalr_spmm_ref(x, q, a, b), dtype)
-        a0 = torch.zeros((k, 0), device=cuda, dtype=dtype)
-        b0 = torch.zeros((0, n), device=cuda, dtype=dtype)
         assert _close(ops.qsalr_matmul(x, q, a0, b0), ref.qsalr_spmm_ref(x, q, a0, b0), dtype)
         # row independence: a row's result does not depend on the batch
         torch.testing.assert_close(ops.qsalr_matmul(x[:1], q, a, b), y[:1], rtol=0, atol=0)
@@ -104,6 +151,59 @@ def test_qsalr_kernel_matches_plain_and_rows_are_independent(cuda, tile, cap_t, 
             # these unscaled factors would swamp
             unrounded = (x.float() @ tbm.qtile_decode(q).float()).to(dtype)
             assert not _close(unrounded, ref.qsalr_spmm_ref(x, q, a0, b0), dtype)
+    for aa, bb in ((a, b), (a0, b0)):
+        fn = lambda xs, aa=aa, bb=bb: ops.qsalr_matmul(xs, q, aa, bb)  # noqa: E731
+        y = fn(x)
+        _salr_bitwise(fn, x, y, monkeypatch)
+        _deterministic(fn, x, y)
+
+
+@pytest.mark.parametrize("op", ["salr_spmm", "qsalr_spmm"])
+def test_salr_kernels_beyond_the_adapter_tile(cuda, op, monkeypatch):
+    """bf16 at R = 300: u @ B_cat walked MAX_RANK (256) rows of B_cat at a
+    time, each chunk from a zeroed accumulator; within the limit, rows
+    bitwise across M and both dispatches."""
+    gen = torch.Generator(device=cuda).manual_seed(300)
+    k, n, r = 96, 512, 300
+    w = (torch.randn((k, n), generator=gen, device=cuda) / 10).to(torch.bfloat16)
+    mask = prune.magnitude_mask(w, 0.5)
+    tbw, _ = tbm.tile_encode(prune.apply_mask(w, mask), mask, 256, 160)
+    wq = tbw if op == "salr_spmm" else tbm.tile_quantize_nf4(tbw)[0]
+    fn, plain = ((ops.salr_matmul, ref.salr_spmm_ref) if op == "salr_spmm"
+                 else (ops.qsalr_matmul, ref.qsalr_spmm_ref))
+    a = (torch.randn((k, r), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((r, n), generator=gen, device=cuda) / r ** 0.5).to(torch.bfloat16)
+    x = torch.randn((1024, k), generator=gen, device=cuda).to(torch.bfloat16)
+    y = fn(x, wq, a, b)
+    assert _close(y, plain(x, wq, a, b), torch.bfloat16)
+    _salr_bitwise(lambda xs: fn(xs, wq, a, b), x, y, monkeypatch)
+
+
+@pytest.mark.parametrize("op", ["salr_spmm", "qsalr_spmm"])
+@pytest.mark.parametrize("k,n", [(16384, 7168), (7168, 2048)], ids=["wo", "shared_up"])
+def test_salr_kernels_at_deepseek_width(cuda, k, n, op):
+    """bf16 salr_spmm and qsalr_spmm at deepseek_v3_671b's widths (its wo,
+    16384 -> 7168, and its shared expert's gate/up, 7168 -> 2048; tile 256,
+    cap_t 160, R 128) at the engine's 8 slots, within the 5e-4 limit: the
+    base walks one or two split-K slices of thousands of K rows, flushed
+    into a fresh accumulator every 256 rows; rows bitwise across M."""
+    from repro_torch.core import salr
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    tbw, _ = salr._tiled_encode(w.to(torch.bfloat16), salr.SALRConfig(dtype="bfloat16"))
+    del w
+    a = (torch.randn((k, 128), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((128, n), generator=gen, device=cuda) / 128 ** 0.5).to(torch.bfloat16)
+    x = (torch.randn((8, k), generator=gen, device=cuda) / 4).to(torch.bfloat16)
+    if op == "qsalr_spmm":
+        wq, _ = tbm.tile_quantize_nf4(tbw)
+        fn, plain = ops.qsalr_matmul, ref.qsalr_spmm_ref
+    else:
+        wq, fn, plain = tbw, ops.salr_matmul, ref.salr_spmm_ref
+    y = fn(x, wq, a, b)
+    assert _close(y, plain(x, wq, a, b), torch.bfloat16)
+    for m in (1, 4):
+        torch.testing.assert_close(fn(x[:m], wq, a, b), y[:m], rtol=0, atol=0)
 
 
 def _quant_pools(kv, rng, cuda, dtype, paged, b=3, h=9, kh=3, d=64, ps=8, max_pages=4):

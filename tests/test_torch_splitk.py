@@ -1,10 +1,10 @@
-"""The split plan of the bf16 ``nm_spmm``, ``nf4_spmm`` and ``fused_lora``
-kernels, on the CPU: the slices cover [0, K) in order at every shape the
-GPU tests and ``chip_smoke.py`` give the kernels, and the plan the wrappers
-pass to the kernel depends on (K, N) and the card (``fused_lora``: on K)
-alone, never on M (a row's bits at M = 1 and M = 1024 rest on it); the NF4
-expert kernels take no plan at all.  The launch is intercepted; no kernel
-runs here."""
+"""The split plan of the bf16 ``nm_spmm``, ``nf4_spmm``, ``fused_lora``,
+``salr_spmm`` and ``qsalr_spmm`` kernels, on the CPU: the slices cover [0,
+K) in order at every shape the GPU tests and ``chip_smoke.py`` give the
+kernels, and the plan the wrappers pass to the kernel depends on (K, N)
+and the card (``fused_lora``: on K) alone, never on M (a row's bits at M =
+1 and M = 1024 rest on it); the expert kernels take no plan at all.  The
+launch is intercepted; no kernel runs here."""
 import pytest
 import torch
 
@@ -206,3 +206,84 @@ def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
                                                    block_m=g.block_m)
             want = (k, r, n_exp, *layout, g.block_m, 1)
         assert seen[-1][skip:] == want
+
+
+# (K, N) of the salr_spmm / qsalr_spmm calls in tests/test_torch_cuda.py
+# and chip_smoke.py phase 2: smollm's four projection shapes, deepseek's wo,
+# shared expert and gate/up, and the ragged ones
+SALR_SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576), (16384, 7168), (7168, 2048),
+               (2048, 7168), (7168, 18432), (100, 64), (100, 192), (100, 384), (100, 512)]
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 1, 1000])
+@pytest.mark.parametrize("k,n", SALR_SHAPES)
+def test_salr_plan_chunks_cover_k(k, n, sms):
+    """salr_plan's slices cover [0, K) in order, none empty, and a slice
+    longer than SALR_CHUNK_K rows is a whole number of chunks, so the rows
+    dispatch's chunks are the slices dispatch's; it departs from
+    splitk_plan only there."""
+    slices, slice_k = ops.salr_plan(k, n, sms)
+    assert slice_k % build.SPLITK_BK == 0
+    assert slice_k <= ops.SALR_CHUNK_K or slice_k % ops.SALR_CHUNK_K == 0
+    bounds = [(s * slice_k, min(k, (s + 1) * slice_k)) for s in range(slices)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi for lo, hi in bounds)
+    if ops.splitk_plan(k, n, sms)[1] <= ops.SALR_CHUNK_K:
+        assert (slices, slice_k) == ops.splitk_plan(k, n, sms)
+
+
+def _salr_weight(kind, k, n, tile, cap_t):
+    gen = torch.Generator().manual_seed(k + n)
+    w = torch.randn((k, n), generator=gen)
+    mask = w.abs() > 0.7
+    tbw, _ = tbm.tile_encode((w * mask).to(torch.bfloat16), mask, tile, cap_t)
+    return tbw if kind == "salr_spmm" else tbm.tile_quantize_nf4(tbw)[0]
+
+
+def _salr_launches(monkeypatch, kind, k, n, r, tile, cap_t, dtype=torch.bfloat16):
+    """(workspace pointer, the four plan ints) of each salr_spmm /
+    qsalr_spmm launch at the M of ``ROWS``: after the workspace come M, K,
+    R, the three layout ints, the base's and u's plans and the dtype code."""
+    seen = []
+
+    def record(name, device, *args):
+        assert name == kind and args[-11:-5] == (m, k, r, n // tile, tile // 32, cap_t)
+        seen.append((args[-12], *args[-5:-1]))
+
+    monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
+    monkeypatch.setattr(ops, "_sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(ops, "_launch", record)
+    tw = _salr_weight(kind, k, n, tile, cap_t)
+    if dtype != torch.bfloat16 and kind == "salr_spmm":
+        tw = tbm.TiledBitmapWeight(words=tw.words, values=tw.values.to(dtype), cols=tw.cols,
+                                   tile=tw.tile, cap_t=tw.cap_t)
+    gen = torch.Generator().manual_seed(r)
+    a = torch.randn((k, r), generator=gen).to(dtype)
+    b = torch.randn((r, n), generator=gen).to(dtype)
+    op = ops.salr_matmul if kind == "salr_spmm" else ops.qsalr_matmul
+    for m in ROWS:
+        op(torch.randn((m, k), generator=gen).to(dtype), tw, a, b)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["salr_spmm", "qsalr_spmm"])
+@pytest.mark.parametrize("k,n,r,tile,cap_t", [(576, 1536, 128, 256, 160),
+                                              (100, 192, 24, 96, 72)])
+def test_salr_wrappers_pass_a_plan_of_k_and_n_alone(monkeypatch, kind, k, n, r, tile, cap_t):
+    """bf16: the base's plan is salr_plan(K, N, SMs) and u's lora_plan(K) at
+    every M; the workspace pointer is null (the rows dispatch) at M = 1024
+    alone, where the base's partials would pass the bytes a pipeline step
+    of K is worth."""
+    seen = _salr_launches(monkeypatch, kind, k, n, r, tile, cap_t)
+    plan = (*ops.salr_plan(k, n, H100_SMS), *ops.lora_plan(k))
+    assert [p for _, *p in seen] == [list(plan)] * len(ROWS)
+    for m, (ws, *_) in zip(ROWS, seen):
+        walks_rows = ops._walks_rows(m, k, n, plan[0], ops.SALR_ROWS_BYTES_PER_STEP)
+        assert (ws is None) == walks_rows == (m == 1024)
+
+
+@pytest.mark.parametrize("kind", ["salr_spmm", "qsalr_spmm"])
+def test_salr_f32_takes_no_plan(monkeypatch, kind):
+    """f32 stays on the scalar body: no workspace and no slices."""
+    seen = _salr_launches(monkeypatch, kind, 64, 64, 8, 32, 16, torch.float32)
+    assert set(seen) == {(None, 0, 0, 0, 0)}
