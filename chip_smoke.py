@@ -30,7 +30,11 @@ Phases (any failure exits non-zero before the result line):
    and NF4) at 4 and 8 slots with 300 / 532 live positions: with NaN or
    junk in the null page and a freed page (data and scales), or past
    each ring row's position, the output must be finite and equal to the
-   clean one.  ``paged_mla_attention`` at deepseek_v3_671b's published
+   clean one.  The quantized ones also with junk in the tail of each
+   slot's last live page, at a 2048-position context with 8 slots
+   (timed beside SDPA), with each slot alone and the first four equal
+   bit for bit to the batch of 8, and with a planted fault the limit
+   must reject (one slot's position lowered by one).  ``paged_mla_attention`` at deepseek_v3_671b's published
    MLA widths (H 128, kv_lora_rank 512, rope 64, qk_dim 192), page size
    8, at 4 and 8 slots with 300 / 532 live positions, pools in bf16 and
    in f32, held to the f32 limit in both (it computes in f32 whatever
@@ -337,14 +341,16 @@ def device_us(torch, prof, by_name: dict = None, counts: dict = None) -> float:
 def _row_line(row: dict) -> str:
     shape = " ".join(f"{k}={row[k]}" for k in ("layer", "tokens", "M", "K", "N_pad", "tile",
                                                 "cap_t", "E",
-                                                "B", "H", "R", "live_positions") if k in row)
+                                                "B", "H", "R", "ctx", "live_positions")
+                     if k in row)
     fault = "".join(f" ({what}: {row[key]:.2e})"
                     for what, key in (("unrounded u", "unrounded_u_rel_l2"),
                                       ("unrounded values", "unrounded_values_rel_l2"),
                                       ("unrounded weight", "unrounded_weight_rel_l2"),
                                       ("inclusive popcount", "inclusive_popcount_rel_l2"),
                                       ("neighbour expert", "neighbour_expert_rel_l2"),
-                                      ("no adapter, vs its plain version", "no_adapter_rel_l2"))
+                                      ("no adapter, vs its plain version", "no_adapter_rel_l2"),
+                                      ("one position dropped", "dropped_position_rel_l2"))
                     if key in row)
     times = " ".join(f"{k} {row[k]:.5f}" for k in ("ms", "plain_ms", "library_ms",
                                                      "bound_ms") if k in row)
@@ -1381,49 +1387,114 @@ def _moe_pad_rows(torch, ops, kind, st, a, b, xs, g, xd, row_e, outs, label):
 
 QUANT_ATTENTION = ("ring_quant_gqa_attention", "paged_quant_gqa_attention",
                    "ring_nf4_gqa_attention", "paged_nf4_gqa_attention")
+# the quantized attention kernels' shapes: smollm_135m's heads (9 query
+# heads, 3 KV heads, head dim 64), page size 8; phase 2's engine context
+# of 160 positions at 4 and 8 slots, and a long context, 2048 positions
+# (SmolLM-135M's published max_position_embeddings) live in 8 slots
+QA_HEADS, QA_PAGE = (9, 3, 64), 8
+QA_POS = (159, 100, 37, 0, 7, 8, 63, 150)
+QA_LONG_CTX, QA_LONG_SLOTS = 2048, 8
+
+
+def qa_inputs(torch, gen, name: str, dt, pos: list, ctx: int) -> tuple:
+    """One quantized attention call's arguments at smollm_135m's heads:
+    random K/V quantized as the caches store them, a page size of 8, and
+    for the paged kernels a shuffled page table whose entries past each
+    slot's last live page are the null page (even slots) or a freed page
+    (odd).  Returns (args, dead): dead marks what no live position holds,
+    (B, W) for a ring (past each row's position), (pages, page size) for
+    pools (the null and the freed page, every page no slot reads, and the
+    tail of each slot's last live page)."""
+    from repro_torch.models import attention as attn
+    h, kh, d = QA_HEADS
+    ps, max_pages, b = QA_PAGE, ctx // QA_PAGE, len(pos)
+    quant = attn.q8 if "quant" in name else attn.qnf4
+    paged = name.startswith("paged")
+    lead = (b * max_pages + 2, ps) if paged else (b, ctx)     # + null + a freed page
+    kq, ks = quant(torch.randn(lead + (kh, d), generator=gen, device="cuda").to(dt))
+    vq, vs = quant(torch.randn(lead + (kh, d), generator=gen, device="cuda").to(dt))
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    if not paged:
+        return (q, kq, vq, ks, vs, pos), torch.arange(ctx, device="cuda")[None] > pos[:, None]
+    freed = lead[0] - 1
+    perm = torch.randperm(b * max_pages, generator=gen, device="cuda") + 1
+    table = perm.reshape(b, max_pages).to(torch.int32)
+    dead = torch.ones(lead, dtype=torch.bool, device="cuda")
+    for i, p in enumerate(pos.tolist()):
+        table[i, p // ps + 1:] = 0 if i % 2 == 0 else freed
+        dead[table[i, :p // ps].long()] = False
+        dead[int(table[i, p // ps]), :p % ps + 1] = False
+    return (q, kq, vq, ks, vs, table, pos), dead
+
+
+def qa_slots(args, paged: bool, sl) -> list:
+    """A quantized attention call's arguments for the slots ``sl`` alone."""
+    return [t[sl] if i in ((0, 5, 6) if paged else range(6)) else t
+            for i, t in enumerate(args)]
+
+
+def qa_sdpa(torch, name: str, args, ctx: int):
+    """The yardstick: SDPA over K/V dequantized, gathered and head-expanded
+    beforehand, live positions masked."""
+    from repro_torch.models import attention as attn
+    h, kh, d = QA_HEADS
+    q, kq, vq, ks, vs, *rest = args
+    pos, b, dt = rest[-1], q.shape[0], q.dtype
+    deq = attn.dq8 if "quant" in name else attn.dqnf4
+    kd, vd = deq(kq, ks, dt), deq(vq, vs, dt)
+    if name.startswith("paged"):
+        kd = kd[rest[0].long()].reshape(b, ctx, kh, d)
+        vd = vd[rest[0].long()].reshape(b, ctx, kh, d)
+    kg = kd.transpose(1, 2).repeat_interleave(h // kh, dim=1).contiguous()
+    vg = vd.transpose(1, 2).repeat_interleave(h // kh, dim=1).contiguous()
+    mask = (torch.arange(ctx, device="cuda")[None] <= pos[:, None])[:, None, None]
+    qs = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qs, kg, vg, attn_mask=mask)
+
+
+def qa_cost(name: str, pos, dtype_name: str) -> tuple:
+    """(bytes, flops, bound ms, bound by) of one call: q and the output;
+    each live position's K and V codes and their two scales; the live
+    page-table entries; pos."""
+    h, kh, d = QA_HEADS
+    b, es = pos.shape[0], 2 if dtype_name == "bfloat16" else 4
+    live_pos = int((pos.long() + 1).sum())
+    row_bytes = d if "quant" in name else d // 2
+    nbytes = (2 * b * h * d * es + 2 * live_pos * kh * (row_bytes + 4) + b * 4
+              + (int((pos.long() // QA_PAGE + 1).sum()) * 4 if name.startswith("paged") else 0))
+    flops = 4 * live_pos * h * d
+    return (nbytes, flops, *_bound(nbytes, flops, dtype_name))
 
 
 def quant_attention_checks(torch, timer, gen, rows: list) -> dict:
     """The four quantized decode-attention kernels vs their plain versions
-    at smollm_135m's decode shape (9 query heads, 3 KV heads, head dim 64,
-    page size 8, 160 positions), 4 and 8 slots.  Paged: junk codes and
-    NaN scales in the null page and in a freed page.  Ring: junk codes
-    and NaN scales past each row's position.  The output must be finite
-    and equal to the clean one."""
+    at smollm_135m's heads, page size 8: at phase 2's 160-position
+    context with 4 and 8 slots, and at a 2048-position context with 8
+    slots, all live.  Junk codes and NaN scales in the null page, a freed
+    page and the tail of each slot's last live page (paged), past each
+    row's position (ring): the output must be finite and equal to the
+    clean one.  At 8 slots each slot alone and the first four together
+    must give the batch's bits.  The limit must reject a planted fault:
+    the first slot's position lowered by one (one live position dropped
+    from its softmax)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import attention as attn
 
-    h, kh, d, ps, max_pages = 9, 3, 64, 8, 20       # max_ctx 160
-    w = ps * max_pages
+    h, kh, d = QA_HEADS
     summary = {name: {"max_abs_err": 0.0} for name in QUANT_ATTENTION}
+    shapes = [(QA_POS[:4], 160), (QA_POS, 160),
+              ((QA_LONG_CTX - 1,) * QA_LONG_SLOTS, QA_LONG_CTX)]
     for name in QUANT_ATTENTION:
         kv = "int8" if "quant" in name else "nf4"
         paged = name.startswith("paged")
-        quant = attn.q8 if kv == "int8" else attn.qnf4
         kern, plain = getattr(ops, name), getattr(ref, name + "_ref")
         for dtype_name in ("bfloat16", "float32"):
             dt = getattr(torch, dtype_name)
-            for b in (4, 8):
-                pos = torch.tensor([159, 100, 37, 0, 7, 8, 63, 150][:b], dtype=torch.int32,
-                                   device="cuda")
-                lead = (b * max_pages + 2, ps) if paged else (b, w)  # + null + a freed page
-                kq, ks = quant(torch.randn(lead + (kh, d), generator=gen, device="cuda").to(dt))
-                vq, vs = quant(torch.randn(lead + (kh, d), generator=gen, device="cuda").to(dt))
-                q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
-                if paged:
-                    freed = lead[0] - 1
-                    perm = torch.randperm(b * max_pages, generator=gen, device="cuda") + 1
-                    table = perm.reshape(b, max_pages).to(torch.int32)
-                    for i in range(b):   # past the last live page: null or freed
-                        table[i, int(pos[i]) // ps + 1:] = 0 if i % 2 == 0 else freed
-                    args = (q, kq, vq, ks, vs, table, pos)
-                    live = torch.zeros(lead[0], dtype=torch.bool, device="cuda")
-                    for i in range(b):
-                        live[table[i, :int(pos[i]) // ps + 1].long()] = True
-                    dead = ~live
-                else:
-                    args = (q, kq, vq, ks, vs, pos)
-                    dead = torch.arange(w, device="cuda")[None, :] > pos[:, None]
+            for pos_list, ctx in shapes:
+                b = len(pos_list)
+                args, dead = qa_inputs(torch, gen, name, dt, list(pos_list), ctx)
+                pos = args[-1]
                 clean = kern(*args)
                 y_ref = plain(*args)
                 dirty = [t.clone() for t in args]
@@ -1433,51 +1504,52 @@ def quant_attention_checks(torch, timer, gen, rows: list) -> dict:
                 y = kern(*dirty)
                 plain_dirty = plain(*dirty)
                 torch.cuda.synchronize()
+                label = f"{name} {dtype_name} B={b} context {ctx}"
                 if not torch.isfinite(y).all() or not torch.equal(y, clean):
-                    fail(f"{name} {dtype_name} B={b}: dead data reached the output")
+                    fail(f"{label}: dead data reached the output")
                 if not torch.isfinite(plain_dirty).all():
                     fail(f"plain {name} let dead data through")
+                if b == 8 and ctx == 160:     # a slot's bits do not depend on the batch
+                    same = [torch.equal(kern(*qa_slots(args, paged, slice(i, i + 1))),
+                                        clean[i:i + 1]) for i in range(b)]
+                    if not all(same) or not torch.equal(
+                            kern(*qa_slots(args, paged, slice(0, 4))), clean[:4]):
+                        fail(f"{label}: a slot alone or in 4 slots differs from the batch of 8")
                 err = rel_l2(torch, y, y_ref)
                 abs_err = (y.float() - y_ref.float()).abs().max().item()
                 if not (err <= TOL[dtype_name]):
-                    fail(f"{name} {dtype_name} B={b}: rel-L2 {err:.3e} > {TOL[dtype_name]:.0e}")
+                    fail(f"{label}: rel-L2 {err:.3e} > {TOL[dtype_name]:.0e}")
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], abs_err)
-                es = q.element_size()
-                live_pos = int((pos.long() + 1).sum())
-                row_bytes = d if kv == "int8" else d // 2
-                # q and the output; each live position's K and V codes and
-                # their two scales; the live page-table entries; pos
-                nbytes = (2 * b * h * d * es + 2 * live_pos * kh * (row_bytes + 4) + b * 4
-                          + (int((pos.long() // ps + 1).sum()) * 4 if paged else 0))
-                flops = 4 * live_pos * h * d
-                bound, by = _bound(nbytes, flops, dtype_name)
+                nbytes, flops, bound, by = qa_cost(name, pos, dtype_name)
                 row = {"kernel": name, "dtype": dtype_name, "B": b, "H": h, "KH": kh, "d": d,
-                       "page_size": ps if paged else None, "ctx": w,
-                       "live_positions": live_pos, "rel_l2": err, "max_abs_err": abs_err,
-                       "bytes": nbytes, "flops": flops, "bound_ms": bound, "bound_by": by}
-                if dtype_name == "bfloat16":
-                    # the yardstick: SDPA over K/V dequantized, gathered and
-                    # head-expanded beforehand
-                    deq = attn.dq8 if kv == "int8" else attn.dqnf4
-                    kd, vd = deq(kq, ks, dt), deq(vq, vs, dt)
-                    if paged:
-                        kd = kd[table.long()].reshape(b, w, kh, d)
-                        vd = vd[table.long()].reshape(b, w, kh, d)
-                    kg = kd.transpose(1, 2).repeat_interleave(h // kh, dim=1).contiguous()
-                    vg = vd.transpose(1, 2).repeat_interleave(h // kh, dim=1).contiguous()
-                    mask = (torch.arange(w, device="cuda")[None] <= pos[:, None])[:, None, None]
-                    qs = q.transpose(1, 2)
-                    sdpa = torch.nn.functional.scaled_dot_product_attention
+                       "page_size": QA_PAGE if paged else None, "ctx": ctx,
+                       "plan": ops.attention_plan(ctx, QA_PAGE if paged else 1, kh,
+                                                  ops._sm_count(pos.device)),
+                       "live_positions": int((pos.long() + 1).sum()), "rel_l2": err,
+                       "max_abs_err": abs_err, "bytes": nbytes, "flops": flops,
+                       "bound_ms": bound, "bound_by": by}
+                if b == 4:
+                    bad = pos.clone()
+                    bad[0] -= 1
+                    row["dropped_position_rel_l2"] = rel_l2(torch, kern(*args[:-1], bad), y_ref)
+                    if not row["dropped_position_rel_l2"] > TOL[dtype_name]:
+                        fail(f"{label}: the limit accepts a dropped position "
+                             f"({row['dropped_position_rel_l2']:.2e})")
+                if dtype_name == "bfloat16" and (b == 4 or ctx == QA_LONG_CTX):
                     row.update(ms=timer.ms(lambda: kern(*args)),
                                plain_ms=timer.ms(lambda: plain(*args)),
-                               library_ms=timer.ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)))
-                    if b == 4:
+                               library_ms=timer.ms(qa_sdpa(torch, name, args, ctx)))
+                    if ctx == QA_LONG_CTX:
+                        s["long_context"] = {kk: row[kk] for kk in (
+                            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "B", "ctx",
+                            "live_positions")}
+                    else:
                         s.update({kk: row[kk] for kk in ("ms", "plain_ms", "library_ms",
                                                          "bound_ms", "bound_by")})
                         s["shape"] = (f"bf16 B=4 H=9 KH=3 d=64 {kv} "
                                       f"{'page_size=8 ' if paged else ''}"
-                                      f"live positions {live_pos}")
+                                      f"live positions {row['live_positions']}")
                 rows.append(row)
                 print(_row_line(row))
     return summary

@@ -29,6 +29,14 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
 - ``deepseek``: ``grouped_salr_spmm`` and ``decode_salr_spmm`` at
   deepseek_v3_671b's gate/up and down stacks (E 256, top-8, R = 128,
   ``chip_smoke._ds_stack``) at 8 tokens (64 rows);
+- ``attention``: the four quantized decode-attention kernels
+  (``ring_quant_gqa_attention``, ``paged_quant_gqa_attention``,
+  ``ring_nf4_gqa_attention``, ``paged_nf4_gqa_attention``) and, as an
+  untouched control, ``paged_gqa_attention`` over bf16 pools, at
+  ``chip_smoke.py`` phase 2's shape (smollm_135m's heads, page size 8, 4
+  slots in a 160-position context, 300 live positions) and at its long
+  context (8 slots, 2048 positions, all live), on the inputs this
+  checkout's ``chip_smoke.qa_inputs`` makes;
 - ``host``: the host's microseconds per call (host clock over 300 calls,
   one synchronize, best of 5) of ``salr_matmul``, ``qsalr_matmul`` and,
   as a control, ``nm_matmul`` at smollm_135m's gate/up (down for
@@ -39,13 +47,15 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
 Each call but ``bitmap_spmm``'s is also split by the kernels it launches;
 an expert call also gives its rel-L2 against its plain version.
 ``--plan-sms N`` cuts K for ``nm_spmm``, ``nf4_spmm``, ``salr_spmm`` and
-``qsalr_spmm`` as on a card of N SMs (``ops.splitk_plan``) instead of
-this card's count; ``--dispatch`` takes their rows or their slices
+``qsalr_spmm`` (``ops.splitk_plan``), and a quantized attention call's
+context (``ops.attention_plan``, a tree that has it), as on a card of N
+SMs instead of this card's count; ``--dispatch`` takes their rows or their slices
 dispatch at every M instead of the one ``ops._walks_rows`` picks (a
 tree that has it).  To compare two
 versions, unpack each into its own directory (``git archive``) and
 alternate their runs, one process each, back to back on one GPU.
 """
+import importlib.util
 import json
 import math
 import re
@@ -63,7 +73,7 @@ from repro_torch.core import salr  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 assert Path(ops.__file__).resolve().is_relative_to(root)
-GROUPS = ("tiled", "splitk", "lora", "experts", "deepseek", "host")
+GROUPS = ("tiled", "splitk", "lora", "experts", "deepseek", "attention", "host")
 only = (sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv
         else GROUPS)
 assert set(only) <= set(GROUPS), only
@@ -73,7 +83,13 @@ if "--plan-sms" in sys.argv:
 if "--dispatch" in sys.argv:
     walk_rows = sys.argv[sys.argv.index("--dispatch") + 1] == "rows"
     ops._walks_rows = lambda *args: walk_rows
-build.build_all()
+# the kernels each group calls: only their sources are built
+NEEDS = {"tiled": ("salr_spmm", "bitmap_spmm"), "splitk": ("nm_spmm", "nf4_spmm"),
+         "lora": ("fused_lora",), "experts": ("grouped_salr_spmm",),
+         "deepseek": ("grouped_salr_spmm",),
+         "attention": ("paged_quant_gqa_attention", "paged_gqa_attention"),
+         "host": ("salr_spmm", "nm_spmm")}
+build.build_all(tuple({n for g in only for n in NEEDS[g]}))
 timer = cs.Timer(torch)
 
 
@@ -217,6 +233,30 @@ with torch.inference_mode():
                 out[f"{key} by kernel"] = ms_by_kernel(fn)
                 out[f"{key} rel_l2"] = cs.rel_l2(torch, fn(), plain[route]())
             del st, a, b
+    if "attention" in only:
+        # the inputs of this script's own chip_smoke.py, whatever TREE holds
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_here", Path(__file__).resolve().parent / "chip_smoke.py")
+        here = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(here)
+        for ctx, pos in ((160, here.QA_POS[:4]),
+                         (here.QA_LONG_CTX, (here.QA_LONG_CTX - 1,) * here.QA_LONG_SLOTS)):
+            for name in (*here.QUANT_ATTENTION, "paged_gqa_attention"):
+                native = name == "paged_gqa_attention"
+                args, _ = here.qa_inputs(torch, gen, "paged_quant_gqa_attention" if native
+                                         else name, torch.bfloat16, list(pos), ctx)
+                if native:      # bf16 pools of the same pages, the same table
+                    q, kq, *_, table, pos_t = args
+                    pools = [torch.randn(kq.shape, generator=gen, device="cuda").bfloat16()
+                             for _ in range(2)]
+                    args = (q, *pools, table, pos_t)
+                fn = (lambda f=getattr(ops, name), a=args: f(*a))
+                key = f"attention {name} B={len(pos)} ctx={ctx}"
+                out[key] = timer.ms(fn)
+                out[f"{key} by kernel"] = ms_by_kernel(fn)
+                if not native:
+                    out[f"{key} rel_l2"] = cs.rel_l2(torch, fn(),
+                                                     getattr(ref, name + "_ref")(*args))
     if "host" in only:
         import time
         w = (torch.randn((576, 1536), generator=gen, device="cuda") / 24).bfloat16()

@@ -40,10 +40,10 @@ KERNELS = {
     "bitmap_spmm": ("bitmap_spmm.cu", [_P] * 4 + [_I] * 7 + [_P]),
     "paged_gqa_attention": ("paged_attention.cu", [_P] * 6 + [_I] * 8 + [_P]),
     "qsalr_spmm": ("salr_spmm.cu", [_P] * 9 + [_I] * 12 + [_P]),
-    "ring_quant_gqa_attention": ("quant_attention.cu", [_P] * 7 + [_I] * 7 + [_P]),
-    "ring_nf4_gqa_attention": ("quant_attention.cu", [_P] * 7 + [_I] * 7 + [_P]),
-    "paged_quant_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
-    "paged_nf4_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 8 + [_P]),
+    "ring_quant_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 9 + [_P]),
+    "ring_nf4_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 9 + [_P]),
+    "paged_quant_gqa_attention": ("quant_attention.cu", [_P] * 9 + [_I] * 10 + [_P]),
+    "paged_nf4_gqa_attention": ("quant_attention.cu", [_P] * 9 + [_I] * 10 + [_P]),
     "nm_spmm": ("nm_spmm.cu", [_P] * 5 + [_I] * 9 + [_P]),
     "fused_lora": ("fused_lora.cu", [_P] * 5 + [_I] * 8 + [_P]),
     "nf4_spmm": ("nf4_spmm.cu", [_P] * 5 + [_I] * 7 + [_P]),

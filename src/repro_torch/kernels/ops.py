@@ -531,9 +531,30 @@ def qsalr_matmul(x: torch.Tensor, q: bm.QTiledBitmapWeight,
     return y.reshape(*lead, q.cols)
 
 
-# per-block shared memory the quantized attention kernels may use
-_SMEM_LIMIT = 227 * 1024
 _KV_CODES = {"int8": torch.int8, "nf4": torch.uint8}
+# The quantized decode-attention kernels' chunk (csrc/quant_attention.cu):
+# at least this many positions, whole pages, and at most ATTN_MAX_UNITS
+# such units, so a chunk's page-table entries fit shared memory
+ATTN_UNIT, ATTN_MAX_UNITS = 64, 64
+# the decode batch a plan fills the card for (the engine's 4 to 8 slots)
+ATTN_SLOTS = 4
+
+
+def attention_plan(ctx: int, page_size: int, kh: int, sms: int) -> tuple:
+    """(chunks, chunk) of the quantized decode-attention kernels for a
+    context of ``ctx`` positions in pages of ``page_size`` (1 for a ring
+    cache) over ``kh`` KV heads on a card of ``sms`` SMs: ``chunks`` chunks
+    of ``chunk`` positions, whole pages and whole units of ATTN_UNIT
+    positions or more, the last ending at or past ``ctx``, enough that the
+    (chunk, KV head) blocks of ATTN_SLOTS slots fill a wave.  Never a
+    function of B or of the slots' positions: a slot's output has the same
+    bits at every batch, and a ring and a paged cache whose pages divide
+    ATTN_UNIT take the same plan (the same bits from the same rows)."""
+    unit = page_size * -(-ATTN_UNIT // page_size)
+    units = max(1, -(-ctx // unit))
+    want = max(1, sms // (ATTN_SLOTS * kh))
+    chunk = min(ATTN_MAX_UNITS, -(-units // want)) * unit
+    return max(1, -(-ctx // chunk)), chunk
 
 
 def _quant_attention(name: str, kv: str, q: torch.Tensor, k: torch.Tensor,
@@ -572,17 +593,22 @@ def _quant_attention(name: str, kv: str, q: torch.Tensor, k: torch.Tensor,
     if g > 8 or d not in (32, 64, 128):
         raise ValueError(f"{name}: kernel takes up to 8 query heads per KV head and "
                          f"head dim 32/64/128 (got {g}, {d})")
-    if 4 * g * (d + ctx + 128) > _SMEM_LIMIT:    # q, scores, PV partial sums
-        raise ValueError(f"{name}: a context of {ctx} positions does not fit the "
-                         "kernel's shared-memory score buffer")
     code = _check_cuda(name, q.dtype, *tensors)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: the K/V codes must start 16-byte aligned")
+    chunks, chunk = attention_plan(ctx, n1 if paged else 1, kh, _sm_count(q.device))
     out = torch.empty_like(q)
     if b:
-        tail = (page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, kh, d,
-                n1, page_table.shape[1]) if paged else \
-            (pos.data_ptr(), out.data_ptr(), b, h, kh, d, n1)
+        # the chunks' f32 partials: acc (B, H, chunks, d), then (max, sum)
+        ws = (torch.empty(b * h * chunks * (d + 2), dtype=torch.float32, device=q.device)
+              if chunks > 1 else None)
+        tail = (page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), b, h, kh, d, n1,
+                page_table.shape[1]) if paged else \
+            (pos.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+             b, h, kh, d, n1)
         _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(), *tail, code)
+                k_scale.data_ptr(), v_scale.data_ptr(), *tail, chunk, chunks, code)
     return out
 
 

@@ -206,21 +206,31 @@ def test_salr_kernels_at_deepseek_width(cuda, k, n, op):
         torch.testing.assert_close(fn(x[:m], wq, a, b), y[:m], rtol=0, atol=0)
 
 
-def _quant_pools(kv, rng, cuda, dtype, paged, b=3, h=9, kh=3, d=64, ps=8, max_pages=4):
+def _quant_pools(kv, rng, cuda, dtype, paged, b=8, h=9, kh=3, d=64, ps=8, max_pages=4,
+                 pos=None):
+    """Quantized K/V, q and pos of ``b`` slots, dense or paged.  Paged: a
+    page table of shuffled pages, the null page past the last live page
+    of every odd slot; also returns the dead pages (the null page and
+    every page no slot reads) and the tail of each slot's last live page
+    as (page, first dead offset)."""
     quant = attn.q8 if kv == "int8" else attn.qnf4
     lead = (b * max_pages + 1, ps) if paged else (b, max_pages * ps)
     k, ks = quant(torch.from_numpy(rng.standard_normal(lead + (kh, d))).to(cuda, dtype))
     v, vs = quant(torch.from_numpy(rng.standard_normal(lead + (kh, d))).to(cuda, dtype))
-    pos = torch.tensor([max_pages * ps - 1, 6, 0][:b], dtype=torch.int32, device=cuda)
+    if pos is None:
+        pos = [max_pages * ps - 1, 6, 0, 13, 17, 25, 1, 30][:b]
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
     q = torch.from_numpy(rng.standard_normal((b, 1, h, d))).to(cuda, dtype)
     if not paged:
-        return (q, k, v, ks, vs, pos), None
+        return (q, k, v, ks, vs, pos), None, None
     table = (rng.permutation(b * max_pages) + 1).reshape(b, max_pages).astype(np.int32)
-    dead = [0]
+    dead, tails = [0], []
     for i in range(b):
-        dead += table[i, int(pos[i]) // ps + 1:].tolist()
-        table[i, int(pos[i]) // ps + 1:] = 0 if i % 2 else table[i, int(pos[i]) // ps + 1:]
-    return (q, k, v, ks, vs, torch.from_numpy(table).to(cuda), pos), dead
+        last = int(pos[i]) // ps
+        dead += table[i, last + 1:].tolist()
+        tails.append((int(table[i, last]), int(pos[i]) % ps + 1))
+        table[i, last + 1:] = 0 if i % 2 else table[i, last + 1:]
+    return (q, k, v, ks, vs, torch.from_numpy(table).to(cuda), pos), dead, tails
 
 
 _QUANT_ATTENTION = {("int8", False): (ops.ring_quant_gqa_attention,
@@ -230,37 +240,108 @@ _QUANT_ATTENTION = {("int8", False): (ops.ring_quant_gqa_attention,
                                      ref.paged_quant_gqa_attention_ref),
                     ("nf4", True): (ops.paged_nf4_gqa_attention,
                                     ref.paged_nf4_gqa_attention_ref)}
+# (H, KH, d): smollm_135m's, granite_moe_1b_a400m's, eight query heads
+# on one KV head (two head groups a block), head dim 32
+_QUANT_HEADS = [pytest.param(hd, id="h{}kh{}d{}".format(*hd))
+                for hd in ((9, 3, 64), (16, 8, 64), (8, 1, 128), (4, 2, 32))]
+# chunk lengths forced on the quantized attention kernels, in pages of 8
+# (None: the card's own plan): one chunk for the whole context, one page
+# a chunk, three pages a chunk (a short last chunk)
+_ATTN_CHUNK_PAGES = (None, 0, 1, 3)
+
+
+def _force_attention_plan(monkeypatch, pages) -> None:
+    """Have every quantized attention call take chunks of ``pages`` pages of
+    8 positions (0: one chunk), or the card's plan (None)."""
+    monkeypatch.undo()
+    if pages is None:
+        return
+
+    def plan(ctx, page_size, kh, sms):
+        chunk = -(-ctx // 8) * 8 if pages == 0 else 8 * pages
+        return -(-ctx // chunk), chunk
+    monkeypatch.setattr(ops, "attention_plan", plan)
+
+
+def _slots(args, paged, sl):
+    """The call's arguments for the slots ``sl`` alone."""
+    q, k, v, ks, vs, *rest = args
+    if paged:
+        table, pos = rest
+        return (q[sl], k, v, ks, vs, table[sl], pos[sl])
+    return (q[sl], k[sl], v[sl], ks[sl], vs[sl], rest[0][sl])
+
+
+@pytest.mark.parametrize("heads", _QUANT_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+@pytest.mark.parametrize("kv", ["int8", "nf4"])
+def test_quant_attention_kernels_match_plain_and_skip_dead_data(cuda, kv, paged, dtype,
+                                                                heads, monkeypatch):
+    """Under the card's plan and three forced ones: within the limit of the
+    plain version; junk codes and NaN scales in the dead pages, in the
+    tail of every slot's last live page (paged) and past each row's pos
+    (ring) change no bit; each slot alone, and the first four together,
+    give the bits of the batch of eight; two calls agree; the ring kernel
+    reading the same rows through a page table gives the same bits."""
+    h, kh, d = heads
+    kern, plain = _QUANT_ATTENTION[kv, paged]
+    for pages in _ATTN_CHUNK_PAGES:
+        _force_attention_plan(monkeypatch, pages)
+        rng = np.random.default_rng(3)
+        args, dead, tails = _quant_pools(kv, rng, cuda, dtype, paged, h=h, kh=kh, d=d)
+        y = kern(*args)
+        assert _close(y, plain(*args), dtype)
+        torch.testing.assert_close(kern(*args), y, rtol=0, atol=0)
+        b = y.shape[0]
+        torch.testing.assert_close(kern(*_slots(args, paged, slice(0, 4))), y[:4],
+                                   rtol=0, atol=0)
+        for i in range(b):
+            torch.testing.assert_close(kern(*_slots(args, paged, slice(i, i + 1))),
+                                       y[i:i + 1], rtol=0, atol=0)
+        q, k, v, ks, vs, *rest = args
+        pos = rest[-1]
+        junk = -99 if kv == "int8" else 0xAB
+        if paged:       # NaN scales and junk codes in the dead pages and tails
+            for t in (ks, vs):
+                t[dead] = float("nan")
+            for t in (k, v):
+                t[dead] = junk
+            for page, first in tails:
+                for t in (ks, vs):
+                    t[page, first:] = float("nan")
+                for t in (k, v):
+                    t[page, first:] = junk
+        else:           # NaN scales and junk codes past each row's pos
+            for i, p in enumerate(pos.tolist()):
+                for t in (ks, vs):
+                    t[i, p + 1:] = float("nan")
+                for t in (k, v):
+                    t[i, p + 1:] = junk
+        torch.testing.assert_close(kern(*args), y, rtol=0, atol=0)
+        # the ring and paged kernels share their per-position code: the same
+        # rows read through a page table give the same bits
+        if not paged:
+            w = k.shape[1]
+            table = torch.arange(b * w // 8, dtype=torch.int32, device=cuda).reshape(b, w // 8)
+            pools = [t.reshape(b * w // 8, 8, *t.shape[2:]) for t in (k, v, ks, vs)]
+            other = _QUANT_ATTENTION[kv, True][0](q, *pools, table, pos)
+            torch.testing.assert_close(other, y, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
 @pytest.mark.parametrize("kv", ["int8", "nf4"])
-def test_quant_attention_kernels_match_plain_and_skip_dead_data(cuda, kv, paged, dtype):
-    rng = np.random.default_rng(3)
-    args, dead = _quant_pools(kv, rng, cuda, dtype, paged)
+def test_quant_attention_kernels_at_a_long_context(cuda, kv, paged, dtype):
+    """A context of 8192 positions at G = 8 (eight query heads on one KV
+    head, d 128), beyond what a score row in shared memory could hold:
+    within the limit of the plain version, one slot at the full context
+    and one ending mid-page."""
+    rng = np.random.default_rng(5)
+    args, _, _ = _quant_pools(kv, rng, cuda, dtype, paged, b=2, h=8, kh=1, d=128,
+                              max_pages=1024, pos=[8191, 5000])
     kern, plain = _QUANT_ATTENTION[kv, paged]
-    y = kern(*args)
-    assert _close(y, plain(*args), dtype)
-    q, k, v, ks, vs, *rest = args
-    pos = rest[-1]
-    if paged:           # NaN scales and junk codes in the dead pages
-        for t in (ks, vs):
-            t[dead] = float("nan")
-        k[dead] = 3
-    else:               # NaN scales and junk codes past each row's pos
-        for i, p in enumerate(pos.tolist()):
-            ks[i, p + 1:] = float("nan")
-            vs[i, p + 1:] = float("nan")
-            v[i, p + 1:] = 5
-    torch.testing.assert_close(kern(*args), y, rtol=0, atol=0)
-    # the ring and paged kernels share their per-position code: the same
-    # rows read through a page table give the same bits
-    if not paged:
-        b, w = k.shape[:2]
-        table = torch.arange(b * w // 8, dtype=torch.int32, device=cuda).reshape(b, w // 8)
-        pools = [t.reshape(b * w // 8, 8, *t.shape[2:]) for t in (k, v, ks, vs)]
-        other = _QUANT_ATTENTION[kv, True][0](q, *pools, table, pos)
-        torch.testing.assert_close(other, y, rtol=0, atol=0)
+    assert _close(kern(*args), plain(*args), dtype)
 
 
 _ROWS = (1, 4, 8, 33, 100)       # 4 and 8: the main path's decode batches
