@@ -16,16 +16,18 @@ Phases (any failure exits non-zero before the result line):
    differs; in bf16 that flips the rounding of a few outputs).
    ``salr_spmm`` and ``bitmap_spmm`` at every (K, N_pad, tile, cap_t)
    of smollm_135m's projections at the decode batch and at prefill
-   size; the bf16 limit must reject a planted fault, ``u = x @ A_cat``
-   left unrounded.  ``qsalr_spmm`` on the NF4 twin of the same
-   projections at the main path's decode batches, M = 4 (the engine's
-   slots) and 8 (greedy_generate's batch), and at M = 1024, which the
-   main path never gives it (prefill is native), to hold its grid over
-   many row blocks too; the bf16 limit must reject the NF4 values left
-   unrounded (f32 into the product).  In bf16 both ops' rows at M = 1,
-   4, 8, 33 and 128 must equal the same rows at M = 1024 bit for bit (the
-   split-K kernels' slices and rows dispatches), as must M = 1024 with
-   either dispatch forced.  ``paged_gqa_attention``
+   size; the bf16 limit must reject a planted fault each, ``u = x @
+   A_cat`` left unrounded and (``bitmap_spmm``) the stored values read
+   one slot late (the inclusive popcount); bf16 ``bitmap_spmm`` must
+   give ``salr_spmm``'s bits with zero adapters.  ``qsalr_spmm`` on the
+   NF4 twin of the same projections at the main path's decode batches,
+   M = 4 (the engine's slots) and 8 (greedy_generate's batch), and at M
+   = 1024, which the main path never gives it (prefill is native), to
+   hold its grid over many row blocks too; the bf16 limit must reject
+   the NF4 values left unrounded (f32 into the product).  In bf16 the
+   three ops' rows at M = 1, 4, 8, 33 and 128 must equal the same rows
+   at M = 1024 bit for bit (the split-K kernels' slices and rows
+   dispatches), as must M = 1024 with either dispatch forced.  ``paged_gqa_attention``
    and the four quantized decode-attention kernels (ring and paged, int8
    and NF4) at 4 and 8 slots with 300 / 532 live positions: with NaN or
    junk in the null page and a freed page (data and scales), or past
@@ -392,14 +394,16 @@ def spmm_checks(torch, timer, gen, rows: list) -> dict:
             for m in (4, 8, 128, 1024):
                 x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
                 cases = {
-                    "salr_spmm": (lambda: ops.salr_matmul(x, tbw, a, b_pad),
+                    "salr_spmm": (lambda xs: ops.salr_matmul(xs, tbw, a, b_pad),
                                   lambda: ref.salr_spmm_ref(x, tbw, a, b_pad),
                                   lambda: x @ w_dense + (x @ a) @ b_pad, R_CAT),
-                    "bitmap_spmm": (lambda: ops.bitmap_matmul(x, tbw),
+                    "bitmap_spmm": (lambda xs: ops.bitmap_matmul(xs, tbw),
                                     lambda: ref.bitmap_spmm_ref(x, tbw),
                                     lambda: x @ w_dense, 0),
                 }
-                for name, (kern, plain, lib, r) in cases.items():
+                for name, (op, plain, lib, r) in cases.items():
+                    def kern(op=op, x=x):
+                        return op(x)
                     y, y_ref = kern(), plain()
                     torch.cuda.synchronize()
                     err = rel_l2(torch, y, y_ref)
@@ -407,10 +411,16 @@ def spmm_checks(torch, timer, gen, rows: list) -> dict:
                     if not (err <= TOL[dtype_name]) or not torch.isfinite(y).all():
                         fail(f"{name} {dtype_name} {lname} M={m}: rel-L2 {err:.3e} "
                              f"> {TOL[dtype_name]:.0e}")
-                    if name == "salr_spmm" and dtype_name == "bfloat16" and m == 1024:
-                        _rows_bitwise(torch, f"salr_spmm bfloat16 {lname}",
-                                      lambda xs: ops.salr_matmul(xs, tbw, a, b_pad), x, y,
+                    if dtype_name == "bfloat16" and m == 1024:
+                        _rows_bitwise(torch, f"{name} bfloat16 {lname}", op, x, y,
                                       ms=SALR_ROWS, dispatches=True)
+                    if name == "bitmap_spmm" and dtype_name == "bfloat16":
+                        # salr_spmm's walk at rank 0: salr_spmm's bits with
+                        # zero adapters
+                        zero_a, zero_b = torch.zeros_like(a), torch.zeros_like(b_pad)
+                        if not _same_bits(torch, y, ops.salr_matmul(x, tbw, zero_a, zero_b)):
+                            fail(f"bitmap_spmm bfloat16 {lname} M={m}: other bits than "
+                                 "salr_spmm with zero adapters")
                     s = summary[name]
                     s["max_abs_err"] = max(s["max_abs_err"], abs_err)
                     es = y.element_size()
@@ -424,6 +434,15 @@ def spmm_checks(torch, timer, gen, rows: list) -> dict:
                            "K": k, "N_pad": tbw.cols, "tile": tbw.tile, "cap_t": tbw.cap_t,
                            "rel_l2": err, "max_abs_err": abs_err, "bytes": nbytes,
                            "flops": flops, "bound_ms": bound, "bound_by": by}
+                    if dtype_name == "bfloat16" and not r:
+                        # planted fault: the stored values read one slot late
+                        late = (x.float() @ _tiled_inclusive(torch, tbw).float()).to(dt)
+                        fault = rel_l2(torch, late, y_ref)
+                        row["inclusive_popcount_rel_l2"] = fault
+                        if not fault > TOL[dtype_name]:
+                            fail(f"bf16 limit {TOL[dtype_name]:.0e} does not reject values "
+                                 f"read at the inclusive popcount at {lname} M={m} "
+                                 f"(rel-L2 {fault:.3e})")
                     if dtype_name == "bfloat16" and r:
                         # planted fault: the plain version with u unrounded
                         unrounded = (x.float() @ w_dense.float() + (x.float() @ a.float())
@@ -445,6 +464,18 @@ def spmm_checks(torch, timer, gen, rows: list) -> dict:
                     rows.append(row)
                     print(_row_line(row))
     return summary
+
+
+def _tiled_inclusive(torch, tbw):
+    """W_hat of a tiled bitmap decoded with each set bit's value read at the
+    inclusive popcount of its cell (one slot late, clamped to cap_t - 1)."""
+    from repro_torch.core import bitmap as bm
+
+    cells = tbw.words.numel() // (tbw.tile // 32)
+    bits = bm.unpack_bits(tbw.words.reshape(cells, tbw.tile // 32), tbw.tile)
+    slot = torch.cumsum(bits.long(), dim=1).clamp(max=tbw.cap_t - 1)
+    vals = torch.gather(tbw.values.reshape(cells, tbw.cap_t), 1, slot)
+    return torch.where(bits, vals, 0).reshape(tbw.rows, tbw.cols)
 
 
 def paged_checks(torch, timer, gen, rows: list) -> dict:

@@ -19,13 +19,13 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
   at M = 8 and 256 to 1024;
 - ``lora``: ``fused_lora`` (R = 128) at smollm_135m's wo and down and
   granite_moe_1b_a400m's wo at M = 4 to 1024;
-- ``experts``: the expert kernels on the tensor-core body, tiled bitmap
-  plain and NF4 and 2:4 (``grouped_salr_spmm``, ``decode_salr_spmm``,
+- ``experts``: the eight expert kernels, tiled bitmap plain and NF4, 2:4
+  and masked dense (``grouped_salr_spmm``, ``decode_salr_spmm``,
   ``grouped_qsalr_spmm``, ``decode_qsalr_spmm``, ``grouped_nm_spmm``,
-  ``decode_nm_spmm``), at granite_moe_1b_a400m's gate/up and down stacks
-  (E 32, top-8, R = 128) at 8 tokens (64 rows) and 128 tokens (decode:
-  1024 rows) or 1024 tokens (grouped: 8192 rows), and the masked dense
-  family's grouped and decode kernels at 8 tokens;
+  ``decode_nm_spmm``, ``grouped_dense_spmm``, ``decode_dense_spmm``), at
+  granite_moe_1b_a400m's gate/up and down stacks (E 32, top-8, R = 128)
+  at 8 tokens (64 rows) and 128 tokens (decode: 1024 rows) or 1024
+  tokens (grouped: 8192 rows);
 - ``deepseek``: ``grouped_salr_spmm`` and ``decode_salr_spmm`` at
   deepseek_v3_671b's gate/up and down stacks (E 256, top-8, R = 128,
   ``chip_smoke._ds_stack``) at 8 tokens (64 rows);
@@ -44,10 +44,11 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
   the host has issued the next: the wrapper's cost, which sets a
   host-bound decode tick.
 
-Each call but ``bitmap_spmm``'s is also split by the kernels it launches;
+Each call is also split by the kernels it launches;
 an expert call also gives its rel-L2 against its plain version.
-``--plan-sms N`` cuts K for ``nm_spmm``, ``nf4_spmm``, ``salr_spmm`` and
-``qsalr_spmm`` (``ops.splitk_plan``), and a quantized attention call's
+``--plan-sms N`` cuts K for ``nm_spmm``, ``nf4_spmm``, ``salr_spmm``,
+``qsalr_spmm`` and ``bitmap_spmm`` (``ops.splitk_plan``; a tree whose
+``bitmap_spmm`` takes a plan), and a quantized attention call's
 context (``ops.attention_plan``, a tree that has it), as on a card of N
 SMs instead of this card's count; ``--dispatch`` takes their rows or their slices
 dispatch at every M instead of the one ``ops._walks_rows`` picks (a
@@ -137,7 +138,7 @@ with torch.inference_mode():
                 if not deepseek:
                     fns["bitmap"] = lambda: ops.bitmap_matmul(x, tbw)
                 out[f"tiled {lname} M={m}"] = {kk: timer.ms(fn) for kk, fn in fns.items()}
-                for kk in ("salr", "qsalr"):
+                for kk in fns:
                     out[f"tiled {lname} M={m} {kk} by kernel"] = ms_by_kernel(fns[kk])
             del tbw, q
     # fused_lora's plan is taken at every M: timed from decode up
@@ -187,8 +188,6 @@ with torch.inference_mode():
                 xd = x.repeat_interleave(topk, dim=0)
                 row_e = top_i.reshape(-1).to(torch.int32)
                 for kind, st in stacks.items():
-                    if kind == "dense" and n_tok != 8:
-                        continue
                     fns = {"grouped": lambda: getattr(ops, f"grouped_{kind}_matmul")(
                                xs, g.tile_expert, st, a, b, block_m=g.block_m),
                            "decode": lambda: getattr(ops, f"decode_{kind}_matmul")(

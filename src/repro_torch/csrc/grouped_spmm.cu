@@ -11,11 +11,11 @@
 //   kernel              weights                     bf16 tile        map
 //   grouped_salr_spmm   BitmapExperts<PlainValues>  PlainCellTile    TileMap  e(r) = tile_expert[r / block_m]
 //   grouped_qsalr_spmm  BitmapExperts<NF4Values>    NF4CellTile      TileMap
-//   grouped_dense_spmm  DenseExperts                -                TileMap
+//   grouped_dense_spmm  DenseExperts                DenseTile        TileMap
 //   grouped_nm_spmm     NMExperts                   NMTile (m | 64)  TileMap
 //   decode_salr_spmm    BitmapExperts<PlainValues>  PlainCellTile    RowMap   e(r) = row_expert[r], -1: a pad row
 //   decode_qsalr_spmm   BitmapExperts<NF4Values>    NF4CellTile      RowMap
-//   decode_dense_spmm   DenseExperts                -                RowMap
+//   decode_dense_spmm   DenseExperts                DenseTile        RowMap
 //   decode_nm_spmm      NMExperts                   NMTile (m | 64)  RowMap
 //
 // Replaces: src/repro/kernels/grouped_spmm.py:grouped_salr_spmm_pallas,
@@ -56,9 +56,10 @@
 //
 // Two bodies:
 //   - bf16 tiled-bitmap experts, plain and NF4 (grouped_salr_spmm,
-//     decode_salr_spmm, grouped_qsalr_spmm, decode_qsalr_spmm), and bf16
-//     N:M experts whose m divides 64 (grouped_nm_spmm, decode_nm_spmm: 2:4
-//     on the main path): the tensor cores (expert_mma.cuh and nm_tile.cuh
+//     decode_salr_spmm, grouped_qsalr_spmm, decode_qsalr_spmm), bf16 N:M
+//     experts whose m divides 64 (grouped_nm_spmm, decode_nm_spmm: 2:4 on
+//     the main path) and bf16 dense experts (grouped_dense_spmm,
+//     decode_dense_spmm): the tensor cores (expert_mma.cuh and nm_tile.cuh
 //     on splitk_gemm.cuh's walk).  A block owns 64 columns and chunks of up
 //     to 64 rows; each 32-row step of K copies the rows' x and the step's
 //     encoded rows with cp.async through a 4-stage ring (16-byte chunks on
@@ -71,23 +72,27 @@
 //     16 rows idle where the scalar body idled 24 of 32.  A plain stage
 //     holds one cell on the main path (72 KB for 4 stages at cap_t up to
 //     256), so two blocks fit an SM as with NF4; a 2:4 stage is a 64-column
-//     block's 16 group bytes and 64 values a row (NMTile, as in nm_spmm).
-//     u and the adapter term run on the same walk, A_cat[e] and B_cat[e]
-//     slabs copied straight into the bf16 stage; each product is summed in
-//     f32 over slices of SLICE_K rows of K.  The grid fills the card at
-//     granite's decode (8 x 33 blocks at gate/up), so K is not split.  A
+//     block's 16 group bytes and 64 values a row (NMTile, as in nm_spmm);
+//     a dense stage is the expert's (32, 64) slab itself, copied straight
+//     into the bf16 tile and multiplied as it landed, with no decode step
+//     (DenseTile, the u pass's tile).  u and the adapter term run on the
+//     same walk, A_cat[e] and B_cat[e] slabs copied straight into the bf16
+//     stage; each product is summed in f32 over slices of SLICE_K rows of
+//     K.  The grid fills the card at granite's decode (8 x 33 blocks at
+//     gate/up), so K is not split.  A
 //     grouped chunk whose x rows are all zero (group_assignments' slack
 //     tiles, past every expert's rows) skips its walks and stores the zeros
 //     they would give.  It replaced the scalar body below: at granite
 //     gate/up, 64 rows, grouped / decode 0.2707 / 0.2522 ms -> 0.0510 /
 //     0.0516 (plain), 0.3329 / 0.2248 -> 0.0580 / 0.0575 (NF4), 0.2540 /
-//     0.2640 -> 0.0382 / 0.0388 (2:4); at 8192 grouped rows 2.832 -> 0.274
-//     ms (plain), 2.035 -> 0.190 (2:4); plain at deepseek gate/up (E 256,
+//     0.2640 -> 0.0382 / 0.0388 (2:4), 0.1968 / 0.1856 -> 0.0370 / 0.0368
+//     (dense); at 8192 grouped rows 2.832 -> 0.274 ms (plain), 2.035 ->
+//     0.190 (2:4), 1.762 -> 0.158 (dense); plain at deepseek gate/up (E 256,
 //     64 rows) 8.80 / 7.25 -> 1.64 / 1.69 ms (NVIDIA H100 80GB HBM3, 700.00
 //     W; spmm_ab.py; PERF.md).  An N:M tile owns BN - BN % m columns and the
 //     body's blocks BN = 64, so a stack whose m does not divide 64 (m in
 //     {3, 5, 6, 7}, which no configuration uses) keeps the scalar body.
-//   - f32, the dense family and N:M at those m (the scalar body of
+//   - f32, and bf16 N:M at those m (the scalar body of
 //     salr_spmm.cu, tiled_bitmap.cuh): a block of 128 threads owns 32
 //     columns and chunks of 32 rows, stages a BK x BN slab of W[e] into
 //     shared memory as f32 (a bitmap slab decoded from its words, an N:M
@@ -96,8 +101,7 @@
 //     (rows_dense_dot for u, the adapter term and the dense base,
 //     rows_bitmap_dot and rows_nm_dot for the encoded bases).  An f32 plain
 //     bitmap row there equals what salr_spmm gives for its expert's
-//     weights.  f32 is held at 1e-5, which TF32 tensor cores cannot meet;
-//     the bf16 dense family is later work.
+//     weights.  f32 is held at 1e-5, which TF32 tensor cores cannot meet.
 #include <type_traits>
 
 #include "expert_mma.cuh"
@@ -436,14 +440,16 @@ moe_spmm_kernel(const T* __restrict__ x, W w, const T* __restrict__ u,
   }
 }
 
-// bf16 tiled-bitmap experts, plain and NF4, and bf16 N:M experts on the
-// tensor cores (expert_mma.cuh, nm_tile.cuh), both maps: the same two
-// launches as above, with 64-column blocks and up to 64 rows a chunk.
+// bf16 tiled-bitmap experts, plain and NF4, bf16 N:M experts and bf16
+// dense experts on the tensor cores (expert_mma.cuh, nm_tile.cuh), both
+// maps: the same two launches as above, with 64-column blocks and up to 64
+// rows a chunk.
 using PlainExperts = BitmapExperts<__nv_bfloat16, salr::PlainValues<__nv_bfloat16>>;
 using NF4Experts = BitmapExperts<__nv_bfloat16, salr::NF4Values<__nv_bfloat16>>;
 namespace sk = salr::splitk;
 template <int NK>
 using NMBf16Experts = NMExperts<sk::bf16, NK>;
+using DenseBf16Experts = DenseExperts<sk::bf16>;
 
 // The tile of a bf16 stack on the tensor cores; void: the family has none.
 template <class W, bool FAST>
@@ -461,6 +467,10 @@ struct CellTileOf<NF4Experts, FAST> {
 template <int NK, bool FAST>
 struct CellTileOf<NMBf16Experts<NK>, FAST> {
   using type = sk::NMTile<NK, FAST>;
+};
+template <bool FAST>
+struct CellTileOf<DenseBf16Experts, FAST> {
+  using type = sk::DenseTile<FAST>;  // its stage is the bf16 tile: no decode step
 };
 template <class W>
 constexpr bool kMma = !std::is_void_v<typename CellTileOf<W, false>::type>;
@@ -488,6 +498,11 @@ __device__ __forceinline__ sk::NMTile<NK, FAST> tile_of(const NMBf16Experts<NK>&
                                                         int block, const float*) {
   const size_t per = (size_t)w.K * (w.N / w.m);  // group bytes of one expert
   return {w.bits + e * per, w.values + e * per * NK, w.N, w.m, block};
+}
+template <bool FAST>
+__device__ __forceinline__ sk::DenseTile<FAST> tile_of(const DenseBf16Experts& w, int e,
+                                                       int block, const float*) {
+  return {w.w + (size_t)e * w.K * w.N, w.N, block};
 }
 
 struct MmaUShared {
@@ -641,8 +656,8 @@ int launch_mma(const void* x, const W& w, const void* a, const void* b, void* u,
 }
 
 // Whether each thread can copy a stack's encoded rows in fixed 16-byte
-// chunks: rows of words and values (codes; N:M: group bytes and values) a
-// multiple of 16 bytes, the pointers aligned.
+// chunks: rows of words and values (codes; N:M: group bytes and values;
+// dense: the weight) a multiple of 16 bytes, the pointers aligned.
 inline bool cells_vec(const PlainExperts& w) {
   return w.wpt % 4 == 0 && sk::aligned16(w.words) && w.cap_t % 8 == 0 &&
          sk::aligned16(w.vals.values);
@@ -655,6 +670,9 @@ template <int NK>
 inline bool cells_vec(const NMBf16Experts<NK>& w) {
   return sk::NMTile<NK, true>::fast(w.bits, w.values, w.N, w.m);
 }
+// a dense expert's rows: N a multiple of 8 bf16, so every expert starts
+// 16-byte aligned too
+inline bool cells_vec(const DenseBf16Experts& w) { return w.N % 8 == 0 && sk::aligned16(w.w); }
 
 template <class W>
 constexpr bool kNM = false;

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # The split-K kernels' tile (csrc/splitk_gemm.cuh, also under fused_lora,
-# the bf16 salr_spmm / qsalr_spmm and the expert body): columns per block
+# the bf16 salr_spmm / qsalr_spmm / bitmap_spmm and the expert body): columns per block
 # and K rows per pipeline step, the unit of a slice.  The kernels are
 # compiled with them; ops.splitk_plan, ops.salr_plan, ops._walks_rows and
 # ops.lora_plan cut K by them.
@@ -37,7 +37,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> (source, C argument types); the entry has the kernel's name
 KERNELS = {
     "salr_spmm": ("salr_spmm.cu", [_P] * 8 + [_I] * 12 + [_P]),
-    "bitmap_spmm": ("bitmap_spmm.cu", [_P] * 4 + [_I] * 7 + [_P]),
+    "bitmap_spmm": ("bitmap_spmm.cu", [_P] * 5 + [_I] * 9 + [_P]),
     "paged_gqa_attention": ("paged_attention.cu", [_P] * 6 + [_I] * 8 + [_P]),
     "qsalr_spmm": ("salr_spmm.cu", [_P] * 9 + [_I] * 12 + [_P]),
     "ring_quant_gqa_attention": ("quant_attention.cu", [_P] * 8 + [_I] * 9 + [_P]),

@@ -134,7 +134,10 @@ def _pad_bcat(b_cat: torch.Tensor, cols: int) -> torch.Tensor:
 
 def bitmap_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight) -> torch.Tensor:
     """y = x @ W_hat with the fused bitmap-decode GEMM.  x: (..., K);
-    returns (..., tbw.cols)."""
+    returns (..., tbw.cols).  bf16 runs salr_spmm's split-K walk at rank
+    0: the same plan (:func:`salr_plan`) and dispatch, with a (slices, M,
+    N) f32 workspace in the slices dispatch; f32 (the scalar body) takes
+    no plan."""
     name = "bitmap_spmm"
     _forward_only(name, x, tbw.values)
     x2, lead = _flatten(x)
@@ -144,11 +147,17 @@ def bitmap_matmul(x: torch.Tensor, tbw: bm.TiledBitmapWeight) -> torch.Tensor:
     else:
         code = _check_cuda(name, x2.dtype, tbw.words, tbw.values)
         m, k = x2.shape
-        y = torch.empty((m, tbw.cols), dtype=x2.dtype, device=x2.device)
+        n = tbw.cols
+        y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
         if m:
+            ws, plan = None, (0, 0)
+            if x2.dtype == torch.bfloat16:
+                plan, rows = _salr_base_plan(x2, k, n)
+                if not rows:
+                    ws = torch.empty((plan[0], m, n), dtype=torch.float32, device=x2.device)
             _launch(name, x2.device, x2.data_ptr(), tbw.words.data_ptr(),
-                    tbw.values.data_ptr(), y.data_ptr(), m, k, tbw.n_tiles,
-                    tbw.tile // 32, tbw.cap_t, code)
+                    tbw.values.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),
+                    m, k, tbw.n_tiles, tbw.tile // 32, tbw.cap_t, *plan, code)
     return y.reshape(*lead, tbw.cols)
 
 
@@ -194,10 +203,10 @@ def _sm_count(device: torch.device) -> int:
 SPLITK_ROWS_BYTES_PER_STEP = 400_000
 
 
-# The same switch for the bf16 salr_spmm / qsalr_spmm: a bitmap step takes
-# about twice a 2:4 step, so the partials pay for longer (the spmm_ab.py
-# --dispatch sweep of M = 4 to 1024 at smollm's four shapes: the least
-# summed time of the 88 calls, PERF.md)
+# The same switch for the bf16 salr_spmm / qsalr_spmm / bitmap_spmm: a
+# bitmap step takes about twice a 2:4 step, so the partials pay for longer
+# (the spmm_ab.py --dispatch sweep of M = 4 to 1024 at smollm's four
+# shapes: the least summed time of the 88 calls, PERF.md)
 SALR_ROWS_BYTES_PER_STEP = 750_000
 
 
@@ -283,7 +292,7 @@ def lora_plan(k: int) -> tuple:
 
 
 # K rows an f32 accumulator of the bf16 salr_spmm / qsalr_spmm kernels runs
-# over at most, 8 pipeline steps (csrc/salr_spmm.cu CHUNK_K): one
+# over at most, 8 pipeline steps (csrc/salr_walk.cuh CHUNK_K): one
 # tensor-core accumulator over deepseek's K = 7168 drifts to 4.5e-4 of the
 # 5e-4 limit (PERF.md)
 SALR_CHUNK_K = 8 * build.SPLITK_BK
@@ -294,9 +303,9 @@ SALR_BLOCKS_PER_SM = 2
 
 
 def salr_plan(k: int, n: int, sms: int) -> tuple:
-    """(slices, slice_k) of the bf16 salr_spmm / qsalr_spmm base product:
-    :func:`splitk_plan`'s where its slices are at most ``SALR_CHUNK_K``
-    rows.  Longer slices are made whole ``SALR_CHUNK_K``-row chunks (the
+    """(slices, slice_k) of the bf16 salr_spmm / qsalr_spmm / bitmap_spmm
+    base product: :func:`splitk_plan`'s where its slices are at most
+    ``SALR_CHUNK_K`` rows.  Longer slices are made whole ``SALR_CHUNK_K``-row chunks (the
     kernel flushes its accumulator every chunk, on one grid in both
     dispatches), as many to a slice as keep the card's waves of
     ``SALR_BLOCKS_PER_SM`` blocks an SM full: splitk_plan fills one wave at
@@ -320,6 +329,15 @@ def salr_plan(k: int, n: int, sms: int) -> tuple:
     return -(-steps // per), per * bk
 
 
+def _salr_base_plan(x2: torch.Tensor, k: int, n: int) -> tuple:
+    """((slices, slice_k), rows) of the bf16 salr_spmm / qsalr_spmm /
+    bitmap_spmm base over a (K, N) weight: :func:`salr_plan` on x's card,
+    and whether the launch takes the rows dispatch (:func:`_walks_rows`
+    at ``SALR_ROWS_BYTES_PER_STEP``)."""
+    plan = salr_plan(k, n, _sm_count(x2.device))
+    return plan, _walks_rows(x2.shape[0], k, n, plan[0], SALR_ROWS_BYTES_PER_STEP)
+
+
 def _launch_salr(name: str, x2: torch.Tensor, tbw, leaves: tuple, a_cat: torch.Tensor,
                  b_cat: torch.Tensor, r: int) -> torch.Tensor:
     """Launch salr_spmm / qsalr_spmm on CUDA tensors; returns y (M, cols).
@@ -338,10 +356,9 @@ def _launch_salr(name: str, x2: torch.Tensor, tbw, leaves: tuple, a_cat: torch.T
     ws = None
     plans = (0, 0, 0, 0)
     if x2.dtype == torch.bfloat16:
-        slices, slice_k = salr_plan(k, n, _sm_count(x2.device))
+        (slices, slice_k), rows = _salr_base_plan(x2, k, n)
         u_slices, u_slice_k = lora_plan(k)
         plans = (slices, slice_k, u_slices, u_slice_k)
-        rows = _walks_rows(m, k, n, slices, SALR_ROWS_BYTES_PER_STEP)
         u_len = -(-u_slices * m * r // 4) * 4          # the base's partials 16-byte aligned
         scratch = torch.empty(u_len + (0 if rows else slices * m * n), dtype=torch.float32,
                               device=x2.device)

@@ -73,8 +73,9 @@ _SALR_K = [pytest.param(100, id="k100"), pytest.param(96, id="k96")]
 @pytest.mark.parametrize("tile,cap_t", [(32, 32), (96, 72), (192, 128), (256, 160)])
 def test_spmm_kernels_match_plain(cuda, tile, cap_t, dtype, sms, k, monkeypatch):
     """salr_spmm and bitmap_spmm against their plain versions at R = 24,
-    salr_spmm's rows bitwise independent of M and of the split-K dispatch,
-    under this card's plan and the plans of 1 and 1000 SMs."""
+    their rows bitwise independent of M and of the split-K dispatch, and
+    bf16 bitmap_spmm bitwise equal to salr_spmm with zero adapters (its walk
+    at rank 0), under this card's plan and the plans of 1 and 1000 SMs."""
     gen = torch.Generator(device=cuda).manual_seed(tile)
     n = 2 * tile
     w = (torch.randn((k, n), generator=gen, device=cuda) / 10).to(dtype)
@@ -91,9 +92,15 @@ def test_spmm_kernels_match_plain(cuda, tile, cap_t, dtype, sms, k, monkeypatch)
         assert _close(ops.bitmap_matmul(x, tbw), ref.bitmap_spmm_ref(x, tbw), dtype)
         # row independence: a row's result does not depend on the batch
         torch.testing.assert_close(ops.salr_matmul(x[:1], tbw, a, b), y[:1], rtol=0, atol=0)
+        if dtype == torch.bfloat16:
+            zeros = ops.salr_matmul(x, tbw, torch.zeros_like(a), torch.zeros_like(b))
+            assert torch.equal(ops.bitmap_matmul(x, tbw), zeros)
     fn = lambda xs: ops.salr_matmul(xs, tbw, a, b)  # noqa: E731
     _salr_bitwise(fn, x, y, monkeypatch)
     _deterministic(fn, x, y)
+    if dtype == torch.bfloat16:
+        fn = lambda xs: ops.bitmap_matmul(xs, tbw)  # noqa: E731
+        _salr_bitwise(fn, x, fn(x), monkeypatch)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -677,6 +684,16 @@ def _nm_stacks(gen, cuda, n_exp, k, n, nm, r):
     return {"nm": nmw}, a, b
 
 
+def _dense_stacks(gen, cuda, n_exp, k, n, r):
+    """A bf16 masked dense expert stack (p = 0.5 per expert) and adapters
+    A_cat (E, K, R), B_cat (E, R, N)."""
+    w = torch.randn((n_exp, k, n), generator=gen, device=cuda) / k ** 0.5
+    dense = prune.apply_mask(w, prune.magnitude_mask(w, 0.5, batch_dims=1)).to(torch.bfloat16)
+    a = (torch.randn((n_exp, k, r), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((n_exp, r, n), generator=gen, device=cuda) / r ** 0.5).to(torch.bfloat16)
+    return {"dense": dense}, a, b
+
+
 def _expert_routes_match(cuda, gen, stacks, a, b, n_exp, n_tok, k, topk):
     """Each stack's grouped and decode kernels at n_tok tokens: each
     matches its plain version and the routes are bitwise equal per row."""
@@ -727,17 +744,20 @@ def test_nm_expert_kernels_any_m(cuda, k, n, nm):
     assert _close(y0, ref.decode_nm_spmm_ref(x, re_, stacks["nm"], None, None), torch.bfloat16)
 
 
-@pytest.mark.parametrize("family", ["bitmap", "nm"])
+@pytest.mark.parametrize("family", ["bitmap", "nm", "dense"])
 def test_bitmap_expert_kernels_many_experts(cuda, family):
-    """bf16 grouped_ and decode_{salr,qsalr}_spmm (bitmap) or _nm_spmm (2:4)
-    over 256 experts at 8 tokens, top-8 (deepseek_v3_671b's routing,
-    narrow K and N): most experts hold no row or one, and each kernel still
-    matches its plain version, the routes bitwise equal per row."""
+    """bf16 grouped_ and decode_{salr,qsalr}_spmm (bitmap), _nm_spmm (2:4) or
+    _dense_spmm (masked dense) over 256 experts at 8 tokens, top-8
+    (deepseek_v3_671b's routing, narrow K and N): most experts hold no row
+    or one, and each kernel still matches its plain version, the routes
+    bitwise equal per row."""
     gen = torch.Generator(device=cuda).manual_seed(256)
     if family == "bitmap":
         stacks, a, b = _bitmap_stacks(gen, cuda, 256, 64, 256, 256, 160, 16)
-    else:
+    elif family == "nm":
         stacks, a, b = _nm_stacks(gen, cuda, 256, 64, 256, (2, 4), 16)
+    else:
+        stacks, a, b = _dense_stacks(gen, cuda, 256, 64, 256, 16)
     _expert_routes_match(cuda, gen, stacks, a, b, 256, 8, 64, 8)
 
 

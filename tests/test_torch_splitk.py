@@ -1,7 +1,7 @@
 """The split plan of the bf16 ``nm_spmm``, ``nf4_spmm``, ``fused_lora``,
-``salr_spmm`` and ``qsalr_spmm`` kernels, on the CPU: the slices cover [0,
-K) in order at every shape the GPU tests and ``chip_smoke.py`` give the
-kernels, and the plan the wrappers pass to the kernel depends on (K, N)
+``salr_spmm``, ``qsalr_spmm`` and ``bitmap_spmm`` kernels, on the CPU: the
+slices cover [0, K) in order at every shape the GPU tests and
+``chip_smoke.py`` give the kernels, and the plan the wrappers pass to the kernel depends on (K, N)
 and the card (``fused_lora``: on K) alone, never on M (a row's bits at M =
 1 and M = 1024 rest on it); the expert kernels take no plan at all.  The
 launch is intercepted; no kernel runs here."""
@@ -163,14 +163,17 @@ def test_lora_f32_takes_no_plan(monkeypatch):
     pytest.param("salr", "grouped", id="plain-grouped"),
     pytest.param("salr", "decode", id="plain-decode"),
     pytest.param("nm", "grouped", id="nm-grouped"),
-    pytest.param("nm", "decode", id="nm-decode")])
+    pytest.param("nm", "decode", id="nm-decode"),
+    pytest.param("dense", "grouped", id="dense-grouped"),
+    pytest.param("dense", "decode", id="dense-decode")])
 def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
     """The expert kernels on the tensor-core body, tiled bitmap plain
     (grouped_ and decode_salr_spmm) and NF4 (grouped_ and
-    decode_qsalr_spmm) and 2:4 (grouped_ and decode_nm_spmm), launch with
-    the stack's layout ints after M (K, R, E, then n_tiles, words per tile
-    and cap_t, or N, n and m; grouped: block_m) and nothing else: no split
-    of K that M, the tile count or an expert's rows could move."""
+    decode_qsalr_spmm), 2:4 (grouped_ and decode_nm_spmm) and masked dense
+    (grouped_ and decode_dense_spmm), launch with the stack's layout ints
+    after M (K, R, E, then n_tiles, words per tile and cap_t; N, n and m;
+    or N; grouped: block_m) and nothing else: no split of K that M, the
+    tile count or an expert's rows could move."""
     from repro_torch.models import moe
     n_exp, k, n, r, topk = 4, 64, 512, 16, 2
     gen = torch.Generator().manual_seed(5)
@@ -180,17 +183,20 @@ def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
     tbw = tbm.TiledBitmapWeight(words=tbw.words.reshape(n_exp, k, 2, 8),
                                 values=tbw.values.reshape(n_exp, k, 2, 160),
                                 cols=n, tile=256, cap_t=160)
-    stack = {"salr": tbw, "qsalr": tbm.tile_quantize_nf4(tbw)[0],
-             "nm": tbm.nm_encode(w.reshape(n_exp, k, n).to(torch.bfloat16))[0]}[kind]
-    layout = (n, 2, 4) if kind == "nm" else (2, 8, 160)
+    w3 = w.reshape(n_exp, k, n)
+    stack = {"salr": lambda: tbw, "qsalr": lambda: tbm.tile_quantize_nf4(tbw)[0],
+             "nm": lambda: tbm.nm_encode(w3.to(torch.bfloat16))[0],
+             "dense": lambda: (w3 * mask.reshape(n_exp, k, n)).to(torch.bfloat16)}[kind]()
+    layout = {"nm": (n, 2, 4), "dense": (n,)}.get(kind, (2, 8, 160))
     a = torch.randn((n_exp, k, r), generator=gen).to(torch.bfloat16)
     b = torch.randn((n_exp, r, n), generator=gen).to(torch.bfloat16)
     seen = []
     monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
     monkeypatch.setattr(ops, "_launch", lambda name, device, *args: seen.append(args))
-    # x, the stack's leaves (words + values, words + codes + scales, or
-    # group bytes + values), A_cat, B_cat, u, y and the row map come before M
-    skip = 7 + (3 if kind == "qsalr" else 2)
+    # x, the stack's leaves (words + values, words + codes + scales, group
+    # bytes + values, or the dense weight), A_cat, B_cat, u, y and the row
+    # map come before M
+    skip = 7 + {"qsalr": 3, "dense": 1}.get(kind, 2)
     for n_tok in (1, 4, 8, 33, 128):
         x = torch.randn((n_tok, k), generator=gen).to(torch.bfloat16)
         top_i = torch.rand((n_tok, n_exp), generator=gen).argsort(dim=1)[:, :topk]
@@ -237,53 +243,60 @@ def _salr_weight(kind, k, n, tile, cap_t):
     w = torch.randn((k, n), generator=gen)
     mask = w.abs() > 0.7
     tbw, _ = tbm.tile_encode((w * mask).to(torch.bfloat16), mask, tile, cap_t)
-    return tbw if kind == "salr_spmm" else tbm.tile_quantize_nf4(tbw)[0]
+    return tbm.tile_quantize_nf4(tbw)[0] if kind == "qsalr_spmm" else tbw
 
 
 def _salr_launches(monkeypatch, kind, k, n, r, tile, cap_t, dtype=torch.bfloat16):
-    """(workspace pointer, the four plan ints) of each salr_spmm /
-    qsalr_spmm launch at the M of ``ROWS``: after the workspace come M, K,
-    R, the three layout ints, the base's and u's plans and the dtype code."""
+    """(workspace pointer, the plan ints) of each salr_spmm / qsalr_spmm /
+    bitmap_spmm launch at the M of ``ROWS``: after the workspace come M, K,
+    R (bitmap_spmm: none), the three layout ints, the base's plan, u's plan
+    (bitmap_spmm: none) and the dtype code."""
     seen = []
+    bitmap = kind == "bitmap_spmm"
+    n_plan = 2 if bitmap else 4
 
     def record(name, device, *args):
-        assert name == kind and args[-11:-5] == (m, k, r, n // tile, tile // 32, cap_t)
-        seen.append((args[-12], *args[-5:-1]))
+        want = ((m, k) if bitmap else (m, k, r)) + (n // tile, tile // 32, cap_t)
+        plan_at = len(args) - 1 - n_plan
+        assert name == kind and args[plan_at - len(want):plan_at] == want
+        seen.append((args[plan_at - len(want) - 1], *args[plan_at:-1]))
 
     monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
     monkeypatch.setattr(ops, "_sm_count", lambda device: H100_SMS)
     monkeypatch.setattr(ops, "_launch", record)
     tw = _salr_weight(kind, k, n, tile, cap_t)
-    if dtype != torch.bfloat16 and kind == "salr_spmm":
+    if dtype != torch.bfloat16 and kind != "qsalr_spmm":
         tw = tbm.TiledBitmapWeight(words=tw.words, values=tw.values.to(dtype), cols=tw.cols,
                                    tile=tw.tile, cap_t=tw.cap_t)
     gen = torch.Generator().manual_seed(r)
     a = torch.randn((k, r), generator=gen).to(dtype)
     b = torch.randn((r, n), generator=gen).to(dtype)
-    op = ops.salr_matmul if kind == "salr_spmm" else ops.qsalr_matmul
+    op = {"salr_spmm": ops.salr_matmul, "qsalr_spmm": ops.qsalr_matmul,
+          "bitmap_spmm": lambda x, tw, a, b: ops.bitmap_matmul(x, tw)}[kind]
     for m in ROWS:
         op(torch.randn((m, k), generator=gen).to(dtype), tw, a, b)
     return seen
 
 
-@pytest.mark.parametrize("kind", ["salr_spmm", "qsalr_spmm"])
+@pytest.mark.parametrize("kind", ["salr_spmm", "qsalr_spmm", "bitmap_spmm"])
 @pytest.mark.parametrize("k,n,r,tile,cap_t", [(576, 1536, 128, 256, 160),
                                               (100, 192, 24, 96, 72)])
 def test_salr_wrappers_pass_a_plan_of_k_and_n_alone(monkeypatch, kind, k, n, r, tile, cap_t):
-    """bf16: the base's plan is salr_plan(K, N, SMs) and u's lora_plan(K) at
-    every M; the workspace pointer is null (the rows dispatch) at M = 1024
-    alone, where the base's partials would pass the bytes a pipeline step
-    of K is worth."""
+    """bf16: the base's plan is salr_plan(K, N, SMs) and u's lora_plan(K)
+    (bitmap_spmm: no u plan) at every M; the workspace pointer is null (the
+    rows dispatch) at M = 1024 alone, where the base's partials would pass
+    the bytes a pipeline step of K is worth."""
     seen = _salr_launches(monkeypatch, kind, k, n, r, tile, cap_t)
-    plan = (*ops.salr_plan(k, n, H100_SMS), *ops.lora_plan(k))
+    plan = (*ops.salr_plan(k, n, H100_SMS),
+            *(() if kind == "bitmap_spmm" else ops.lora_plan(k)))
     assert [p for _, *p in seen] == [list(plan)] * len(ROWS)
     for m, (ws, *_) in zip(ROWS, seen):
         walks_rows = ops._walks_rows(m, k, n, plan[0], ops.SALR_ROWS_BYTES_PER_STEP)
         assert (ws is None) == walks_rows == (m == 1024)
 
 
-@pytest.mark.parametrize("kind", ["salr_spmm", "qsalr_spmm"])
+@pytest.mark.parametrize("kind", ["salr_spmm", "qsalr_spmm", "bitmap_spmm"])
 def test_salr_f32_takes_no_plan(monkeypatch, kind):
     """f32 stays on the scalar body: no workspace and no slices."""
     seen = _salr_launches(monkeypatch, kind, 64, 64, 8, 32, 16, torch.float32)
-    assert set(seen) == {(None, 0, 0, 0, 0)}
+    assert set(seen) == {(None,) + (0,) * (2 if kind == "bitmap_spmm" else 4)}
