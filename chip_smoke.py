@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the result line):
 
 1. Card and build: the card's name and power limit, then the nine CUDA
    sources of ``src/repro_torch/csrc`` (twenty kernels) built with nvcc,
-   one process per source, in parallel.
+   one process per source, in parallel, while run (F)'s model is drawn
+   and compressed on the GPU (compression runs no kernel of the port).
 2. Kernel vs plain version, in bf16 and in f32 with TF32 off, held to
    the plain PyTorch version: rel-L2 <= 5e-4 in bf16, <= 1e-5 in f32
    (both sum in f32 and round once, so only the f32 summation order
@@ -19,7 +20,11 @@ Phases (any failure exits non-zero before the result line):
    size; the bf16 limit must reject a planted fault each, ``u = x @
    A_cat`` left unrounded and (``bitmap_spmm``) the stored values read
    one slot late (the inclusive popcount); bf16 ``bitmap_spmm`` must
-   give ``salr_spmm``'s bits with zero adapters.  ``qsalr_spmm`` on the
+   give ``salr_spmm``'s bits with zero adapters.  bf16 ``salr_spmm`` also
+   at run (F)'s four projection shapes (K 4096 / 14336, N 1024 / 4096 /
+   14336) at M = 4, 8, 128 and 1024, and ``paged_gqa_attention`` at (F)'s
+   heads (32 query, 8 KV, d 128) as at smollm's below, correctness only
+   (``spmm_ab.py --only llama`` times them).  ``qsalr_spmm`` on the
    NF4 twin of the same projections at the main path's decode batches,
    M = 4 (the engine's slots) and 8 (greedy_generate's batch), and at M
    = 1024, which the main path never gives it (prefill is native), to
@@ -76,7 +81,13 @@ Phases (any failure exits non-zero before the result line):
    flushed before every launch; CUDA events for a function whose every
    trace comes back empty) beside the plain version and, where one
    exists, one library call as a yardstick.
-3. Main path: smollm_135m at full width, compressed once on the GPU from
+3. Main path.  First (F) llama3_8b_proxy at its published widths
+   (d_model 4096, 32 heads, 8 KV heads, head dim 128, d_ff 14336, vocab
+   128256, rope theta 5e5, bf16, p = 0.5, R = 128) at ``LLAMA_LAYERS``
+   of its 32 layers, served as smollm is below under the
+   native plan (tokens and parity as there, prefill logits within
+   ``ROUTE_TOL`` of the reference route, wk/wv's and down's adapter terms
+   dropped beyond it).  Then smollm_135m at full width, compressed once on the GPU from
    seeded dense weights with the NF4 twin (``dual_repr``); 8 requests
    (prompt 128 sharing a 64-token prefix, 32 new tokens) served by the
    batch engine (greedy_generate) and by the continuous engine (4 slots,
@@ -133,9 +144,10 @@ Phases (any failure exits non-zero before the result line):
    ``paged_mla_attention``; decode-grid experts), tokens and parity as
    above, prefill logits within ``ROUTE_TOL`` of the reference route and
    wo's adapter term dropped beyond it.
-4. Launch counts, set to 0 before each of the ten runs and read after
-   it: the native run 210 ``salr_spmm`` per forward (7 projections x 30
-   layers); a quantized run 210 ``qsalr_spmm`` and 30 quantized
+4. Launch counts, set to 0 before each of the eleven runs and read after
+   it: (F) 7 x ``LLAMA_LAYERS`` ``salr_spmm`` per forward and
+   ``LLAMA_LAYERS`` ``paged_gqa_attention`` per engine tick; the native
+   run 210 ``salr_spmm`` per forward (7 projections x 30 layers); a quantized run 210 ``qsalr_spmm`` and 30 quantized
    attention launches per decode step and ``salr_spmm`` at prefill
    only; (A) 50 ``salr_spmm``, 20 ``nm_spmm`` and 20 ``fused_lora``
    per forward (10 layers); (B) 60 ``nf4_spmm`` and 60 ``fused_lora`` per decode
@@ -157,13 +169,14 @@ Phases (any failure exits non-zero before the result line):
    ``paged_gqa_attention``; every kernel launched at least once.
 
 The last lines are the card (nvidia-smi), a JSON object describing each
-kernel (its launches summed over the ten main-path runs, its times at
+kernel (its launches summed over the eleven main-path runs, its times at
 one decode-size call), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import gc
 import json
 import math
@@ -232,6 +245,11 @@ SALR_ROWS = (1, 4, 8, 33, 128)
 # deepseek_v3_671b's depth in run (E): the first layer of each LayerGroup
 # (61 layers, 6.7e11 weights, fit no card); every width is the published one
 DEEPSEEK_LAYERS = 2
+# llama3_8b_proxy's depth in run (F), every width the published one: its
+# model is drawn and compressed while nvcc builds (~8 s + ~2.8 s a layer:
+# 97 s at 32 layers beside an 88 s build) and served in ~27 s at 32 layers;
+# the whole smoke took 627 s at 32 layers on an H100 (PERF.md section 4)
+LLAMA_LAYERS = 32
 
 
 def fail(msg: str) -> None:
@@ -466,6 +484,47 @@ def spmm_checks(torch, timer, gen, rows: list) -> dict:
     return summary
 
 
+# llama3_8b_proxy's projections (K, N) in run (F), and the row counts (F)
+# gives salr_spmm: its 4 engine slots, greedy_generate's 8 requests, one
+# 128-token prompt and the 8 prompts' prefill together
+LLAMA_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "gate/up": (4096, 14336),
+                "down": (14336, 4096)}
+LLAMA_ROWS = (4, 8, 128, 1024)
+
+
+def llama_spmm_checks(torch, gen, rows: list) -> float:
+    """bf16 salr_spmm (R 128) vs its plain version at run (F)'s four
+    projection shapes and row counts; correctness only (spmm_ab.py
+    --only llama times them).  Returns the largest absolute error."""
+    from repro_torch.core import salr
+    from repro_torch.kernels import ops, ref
+
+    dt, worst = torch.bfloat16, 0.0
+    for lname, (k, n) in LLAMA_SHAPES.items():
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        tbw, _ = salr._tiled_encode(w.to(dt), salr.SALRConfig(dtype="bfloat16"))
+        del w
+        a = (torch.randn((k, R_CAT), generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+        b = (torch.randn((R_CAT, n), generator=gen, device="cuda") / math.sqrt(R_CAT)).to(dt)
+        b_pad = ops._pad_bcat(b, tbw.cols)
+        for m in LLAMA_ROWS:
+            x = (torch.randn((m, k), generator=gen, device="cuda") / 4).to(dt)
+            y, y_ref = ops.salr_matmul(x, tbw, a, b_pad), ref.salr_spmm_ref(x, tbw, a, b_pad)
+            torch.cuda.synchronize()
+            err = rel_l2(torch, y, y_ref)
+            abs_err = (y.float() - y_ref.float()).abs().max().item()
+            row = {"kernel": "salr_spmm", "dtype": "bfloat16", "layer": f"llama {lname}",
+                   "M": m, "K": k, "N_pad": tbw.cols, "tile": tbw.tile, "cap_t": tbw.cap_t,
+                   "rel_l2": err, "max_abs_err": abs_err}
+            rows.append(row)
+            print(_row_line(row))
+            if not (err <= TOL["bfloat16"]) or not torch.isfinite(y).all():
+                fail(f"salr_spmm bfloat16 llama {lname} M={m}: rel-L2 {err:.3e} "
+                     f"> {TOL['bfloat16']:.0e}")
+            worst = max(worst, abs_err)
+    return worst
+
+
 def _tiled_inclusive(torch, tbw):
     """W_hat of a tiled bitmap decoded with each set bit's value read at the
     inclusive popcount of its cell (one slot late, clamped to cap_t - 1)."""
@@ -478,12 +537,14 @@ def _tiled_inclusive(torch, tbw):
     return torch.where(bits, vals, 0).reshape(tbw.rows, tbw.cols)
 
 
-def paged_checks(torch, timer, gen, rows: list) -> dict:
-    """paged_gqa_attention vs its plain version at smollm_135m's decode
-    shape, with NaN planted in the null page and a freed page."""
+def paged_checks(torch, timer, gen, rows: list, heads=(9, 3, 64), timed=True) -> dict:
+    """paged_gqa_attention vs its plain version at a decode shape of
+    ``heads`` (query heads, KV heads, head dim; smollm_135m's by default),
+    with NaN planted in the null page and a freed page.  Timed in bf16
+    only when ``timed``."""
     from repro_torch.kernels import ops, ref
 
-    h, kh, d, ps, max_pages = 9, 3, 64, 8, 20       # max_ctx 160
+    (h, kh, d), ps, max_pages = heads, 8, 20        # max_ctx 160
     summary = {"max_abs_err": 0.0}
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
@@ -536,7 +597,7 @@ def paged_checks(torch, timer, gen, rows: list) -> dict:
                    "KH": kh, "d": d, "page_size": ps, "max_pages": max_pages,
                    "live_positions": live_pos, "rel_l2": err, "max_abs_err": abs_err,
                    "bytes": nbytes, "flops": flops, "bound_ms": bound, "bound_by": by}
-            if dtype_name == "bfloat16":
+            if dtype_name == "bfloat16" and timed:
                 w = max_pages * ps
                 # the yardstick attends over pre-gathered, head-expanded K/V
                 kg = kp[table.long()].reshape(b, w, kh, d).transpose(1, 2)
@@ -2138,6 +2199,81 @@ def deepseek_path(torch, dev, seed: int, rows: list) -> tuple:
     return label, counts, expected, per_step
 
 
+def llama_cfg():
+    """llama3_8b_proxy at its published widths, cut to ``LLAMA_LAYERS`` of
+    its 32 layers."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    base = configs.get("llama3_8b_proxy")
+    return base.with_(layer_groups=(dataclasses.replace(base.layer_groups[0],
+                                                        repeats=LLAMA_LAYERS),))
+
+
+def llama_build(torch, dev, seed: int) -> tuple:
+    """(F)'s model: drawn on the host and compressed on ``dev``, which runs
+    no kernel of the port, so it can overlap the kernels' build.  Returns
+    (params, compress seconds)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    loaded = set(build._LIBS)
+    params, init_s = serve.build_params(llama_cfg(), seed, dev)
+    if set(build._LIBS) != loaded:
+        fail("compressing llama3_8b_proxy loaded a kernel library")
+    return params, init_s
+
+
+def llama_path(torch, params, init_s: float, seed: int, rows: list) -> tuple:
+    """(F) llama3_8b_proxy at published width, ``LLAMA_LAYERS`` layers,
+    compressed from seeded weights (bitmap, p = 0.5, R = 128, native
+    plan), served as smollm is: greedy_generate and the continuous engine
+    at ``N_SLOTS`` slots on paged KV with prefix sharing.  Prefill logits
+    of the kernel route within ``ROUTE_TOL`` of the reference route; wk/wv's
+    and down's adapter terms dropped beyond it."""
+    from repro_torch.core import execplan
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = llama_cfg()
+    label = "llama (F)"
+    n_layers = cfg.n_layers
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    print(f"phase 3: {label}: compressed {cfg.name} at {n_layers} of its 32 layers (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) on "
+          f"{M.params_device(params)} in {init_s:.2f}s, drawn while the kernels built; parameter "
+          f"bytes {nbytes}")
+    prompts = serve.request_prompts(cfg, N_REQ, PROMPT_LEN, seed, shared_prefix=64)
+    plan = execplan.resolve_plan(cfg)
+    greedy, batch_s, eng, results, metrics, counts, peak = serve_both(
+        torch, cfg, params, prompts, GEN_LEN, N_SLOTS, plan)
+    ticks = metrics["n_decode_ticks"]
+    # 7 SALR projections per layer per forward; one paged attention per
+    # layer and engine tick
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"salr_spmm": 7 * n_layers * (GEN_LEN + metrics["n_prefills"] + ticks),
+                     "paged_gqa_attention": n_layers * ticks})
+    print(f"phase 3: {label}: {serve.route_line(cfg, plan)}")
+    print(_engine_line(label, greedy, batch_s, metrics, peak))
+    check_tokens(label, cfg, greedy, results, N_REQ, GEN_LEN)
+    with torch.inference_mode():
+        report = serve.parity_report(cfg, params, prompts, greedy, results, plan)
+    check_parity(label, report, N_REQ)
+    faults = {f"{'/'.join(names)} adapter term dropped": drop_adapters(torch, params, names)
+              for names in (("wk", "wv"), ("down",))}
+    err, errs = prefill_route_check(torch, cfg, params, prompts, plan, label, faults)
+    rows.append({"main_path": label, "layers": n_layers, "batch_tokens": int(greedy.size),
+                 "batch_s": batch_s, "engine": {k: v for k, v in metrics.items() if k != "plan"},
+                 "peak_bytes": peak, "param_bytes": nbytes, "compress_s": init_s,
+                 "launches": counts, "divergences": report,
+                 "kernel_vs_reference_rel_l2": err, "planted_faults_rel_l2": errs,
+                 "decode_tick": tick_profile(torch, eng, prompts)})
+    return label, counts, expected, {"salr_spmm per decode step": 7 * n_layers,
+                                     "paged_gqa_attention per engine tick": n_layers}
+
+
 def prefill_route_check(torch, cfg, params, prompts, plan, label: str, faults: dict) -> tuple:
     """Prefill logits of 2 prompts, kernel route vs reference route, within
     ``ROUTE_TOL``; every planted fault (params) on the kernel route beyond
@@ -2452,10 +2588,15 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    build_s = build.build_all()
+    # nvcc builds the kernels while (F)'s model is drawn and compressed
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build.build_all)
+        llama, llama_s = llama_build(torch, torch.device("cuda"), args.seed)
+        build_s = building.result()
     for name in build.KERNELS:
         build.load(name)
-    print(f"phase 1: built {', '.join(build.KERNELS)} in {build_s:.2f}s")
+    print(f"phase 1: built {', '.join(build.KERNELS)} in {build_s:.2f}s; (F)'s model "
+          f"compressed beside it in {llama_s:.2f}s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2465,6 +2606,11 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         spmm = spmm_checks(torch, timer, gen, rows)
         paged = paged_checks(torch, timer, gen, rows)
+        # the same two kernels at (F)'s shapes, correctness only
+        salr_s = spmm["salr_spmm"]
+        salr_s["max_abs_err"] = max(salr_s["max_abs_err"], llama_spmm_checks(torch, gen, rows))
+        paged["max_abs_err"] = max(paged["max_abs_err"], paged_checks(
+            torch, timer, gen, rows, heads=(32, 8, 128), timed=False)["max_abs_err"])
         qsalr = qsalr_checks(torch, timer, gen, rows)
         mla = mla_checks(torch, timer, gen, rows)
         quant_att = quant_attention_checks(torch, timer, gen, rows)
@@ -2476,7 +2622,11 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t_start:.1f}s); {Timer.by_events} timed functions "
           f"fell back to CUDA events")
 
-    paths = main_path(torch, torch.device("cuda"), args.seed, rows)
+    paths = [llama_path(torch, llama, llama_s, args.seed, rows)]
+    del llama
+    gc.collect()
+    print(f"phase 3: llama3_8b_proxy run done ({time.perf_counter() - t_start:.1f}s)")
+    paths += main_path(torch, torch.device("cuda"), args.seed, rows)
     gc.collect()                  # the bitmap model goes before the next two
     paths += method_paths(torch, torch.device("cuda"), args.seed, rows)
     gc.collect()

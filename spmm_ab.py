@@ -37,6 +37,17 @@ L2 flushed, median of 3 traces) the groups of kernels ``--only`` names
   slots in a 160-position context, 300 live positions) and at its long
   context (8 slots, 2048 positions, all live), on the inputs this
   checkout's ``chip_smoke.qa_inputs`` makes;
+- ``llama``: llama3_8b_proxy's four projection shapes (wq/wo 4096 ->
+  4096, wk/wv 4096 -> 1024, gate/up 4096 -> 14336, down 14336 -> 4096)
+  at M = 8 (Table 4's decode batch) under three ops: the bitmap SALR op
+  (``salr_spmm``, R = 128), the 2:4 SALR op (``nm_spmm`` + ``fused_lora``
+  and their sum, as the model runs it) and the dense ``x @ W``, each with
+  its byte bound and its rel-L2 against its plain version and, beside
+  the plain version's own, against the op's roundings on f64 sums; and
+  ``paged_gqa_attention`` beside SDPA (over K/V gathered and
+  head-expanded beforehand) at 8 slots x 2048 live positions, page size
+  8, at smollm_135m's heads (9 query, 3 KV, d 64) and llama3_8b_proxy's
+  (32, 8, 128);
 - ``host``: the host's microseconds per call (host clock over 300 calls,
   one synchronize, best of 5) of ``salr_matmul``, ``qsalr_matmul`` and,
   as a control, ``nm_matmul`` at smollm_135m's gate/up (down for
@@ -74,7 +85,7 @@ from repro_torch.core import salr  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 assert Path(ops.__file__).resolve().is_relative_to(root)
-GROUPS = ("tiled", "splitk", "lora", "experts", "deepseek", "attention", "host")
+GROUPS = ("tiled", "splitk", "lora", "experts", "deepseek", "attention", "llama", "host")
 only = (sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv
         else GROUPS)
 assert set(only) <= set(GROUPS), only
@@ -89,6 +100,7 @@ NEEDS = {"tiled": ("salr_spmm", "bitmap_spmm"), "splitk": ("nm_spmm", "nf4_spmm"
          "lora": ("fused_lora",), "experts": ("grouped_salr_spmm",),
          "deepseek": ("grouped_salr_spmm",),
          "attention": ("paged_quant_gqa_attention", "paged_gqa_attention"),
+         "llama": ("salr_spmm", "nm_spmm", "fused_lora", "paged_gqa_attention"),
          "host": ("salr_spmm", "nm_spmm")}
 build.build_all(tuple({n for g in only for n in NEEDS[g]}))
 timer = cs.Timer(torch)
@@ -256,6 +268,96 @@ with torch.inference_mode():
                 if not native:
                     out[f"{key} rel_l2"] = cs.rel_l2(torch, fn(),
                                                      getattr(ref, name + "_ref")(*args))
+    if "llama" in only:
+        m, r, es = 8, cs.R_CAT, 2
+        shapes = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "gate/up": (4096, 14336),
+                  "down": (14336, 4096)}
+        for lname, (k, n) in shapes.items():
+            w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+            tbw, _ = salr._tiled_encode(w, salr.SALRConfig(dtype="bfloat16"))
+            nmw, _ = bm.nm_encode(w)
+            a = (torch.randn((k, r), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+            b = (torch.randn((r, n), generator=gen, device="cuda") / math.sqrt(r)).bfloat16()
+            b_pad = ops._pad_bcat(b, tbw.cols)
+            x = (torch.randn((m, k), generator=gen, device="cuda") / 4).bfloat16()
+            nnz = int(bm.unpack_bits(tbw.words.reshape(-1, tbw.tile // 32), tbw.tile).sum())
+            fns = {"bitmap": lambda: ops.salr_matmul(x, tbw, a, b_pad),
+                   "2:4": lambda: ops.nm_matmul(x, nmw) + ops.lora_matmul(x, a, b),
+                   "dense": lambda: x @ w}
+            plain = {"bitmap": lambda: ref.salr_spmm_ref(x, tbw, a, b_pad),
+                     "2:4": lambda: ref.nm_spmm_ref(x, nmw) + ref.fused_lora_ref(x, a, b),
+                     "dense": lambda: (x.float() @ w.float()).bfloat16()}
+            # each op's roundings (u, each product's output) on sums taken in
+            # f64, against which the kernel and its plain version are both
+            # read: at K = 4096 and 14336 an f32 sum can round the other way
+            xd = x.double()
+            u = (xd @ a.double()).bfloat16().double()
+            exact = {"bitmap": (xd @ salr.materialize_base(tbw).double()
+                                + u @ b_pad.double()).bfloat16(),
+                     "2:4": (xd @ bm.nm_decode(nmw).double()).bfloat16()
+                     + (u @ b.double()).bfloat16(),
+                     "dense": (xd @ w.double()).bfloat16()}
+            # what each function needs: x and y; the words and the nnz
+            # stored values, the 2:4 group bits and the k x n / 2 values, or
+            # the dense weight; A and B of the SALR ops
+            io, adapters = (m * k + m * n) * es, (k * r + r * n) * es
+            cost = {"bitmap": (io + tbw.words.numel() * 4 + nnz * es + adapters,
+                               2 * m * (nnz + k * r + r * n)),
+                    "2:4": (io + nmw.group_bits.numel() + nmw.values.numel() * es + adapters,
+                            2 * m * (nmw.values.numel() + k * r + r * n)),
+                    "dense": (io + k * n * es, 2 * m * k * n)}
+            for kk, fn in fns.items():
+                key = f"llama {lname} M={m} {kk}"
+                out[key] = timer.ms(fn)
+                out[f"{key} by kernel"] = ms_by_kernel(fn)
+                y, y_plain = fn(), plain[kk]()
+                out[f"{key} rel_l2"] = cs.rel_l2(torch, y, y_plain)
+                out[f"{key} rel_l2 vs f64"] = cs.rel_l2(torch, y, exact[kk])
+                out[f"{key} plain rel_l2 vs f64"] = cs.rel_l2(torch, y_plain, exact[kk])
+                nbytes, flops = cost[kk]
+                if kk == "2:4":     # its two launches apart, and u's roundings
+                    out[f"{key} nm_spmm rel_l2 vs f64"] = cs.rel_l2(
+                        torch, ops.nm_matmul(x, nmw),
+                        (xd @ bm.nm_decode(nmw).double()).bfloat16())
+                    out[f"{key} fused_lora rel_l2 vs f64"] = cs.rel_l2(
+                        torch, ops.lora_matmul(x, a, b), (u @ b.double()).bfloat16())
+                    # u itself, read through B = I (u rounded, times 1)
+                    eye = torch.eye(r, device="cuda").bfloat16()
+                    out[f"{key} u entries off the f64 sum's rounding"] = {
+                        "kernel": int((ops.lora_matmul(x, a, eye).double() != u).sum()),
+                        "plain": int(((x.float() @ a.float()).bfloat16().double() != u).sum())}
+                out[f"{key} bytes"], out[f"{key} flops"] = nbytes, flops
+                out[f"{key} bound_ms"], out[f"{key} bound_by"] = cs._bound(nbytes, flops,
+                                                                           "bfloat16")
+            del w, tbw, nmw, a, b, b_pad, exact, u
+        ctx, ps, b = 2048, 8, 8
+        for arch, (h, kh, d) in (("smollm", (9, 3, 64)), ("llama", (32, 8, 128))):
+            pages = ctx // ps
+            kp, vp = (torch.randn((b * pages + 1, ps, kh, d), generator=gen,
+                                  device="cuda").bfloat16() for _ in range(2))
+            table = (torch.randperm(b * pages, generator=gen, device="cuda") + 1).reshape(
+                b, pages).to(torch.int32)
+            pos = torch.full((b,), ctx - 1, dtype=torch.int32, device="cuda")
+            q = torch.randn((b, 1, h, d), generator=gen, device="cuda").bfloat16()
+            kg, vg = (pool[table.long()].reshape(b, ctx, kh, d).transpose(1, 2)
+                      .repeat_interleave(h // kh, dim=1).contiguous() for pool in (kp, vp))
+            qs = q.transpose(1, 2)
+            fns = {"kernel": lambda: ops.paged_gqa_attention(q, kp, vp, table, pos),
+                   "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qs, kg, vg)}
+            key = f"llama attention paged_gqa_attention {arch} H={h} KH={kh} d={d} B={b} ctx={ctx}"
+            for kk, fn in fns.items():
+                out[f"{key} {kk}"] = timer.ms(fn)
+                out[f"{key} {kk} by kernel"] = ms_by_kernel(fn)
+            out[f"{key} rel_l2"] = cs.rel_l2(torch, fns["kernel"](),
+                                             ref.paged_gqa_attention_ref(q, kp, vp, table, pos))
+            # q and the output, each live position's K and V rows, the page
+            # table, pos
+            nbytes = 2 * b * h * d * es + 2 * b * ctx * kh * d * es + b * pages * 4 + b * 4
+            flops = 4 * b * ctx * h * d
+            out[f"{key} bound_ms"], out[f"{key} bound_by"] = cs._bound(nbytes, flops,
+                                                                       "bfloat16")
+            del kp, vp, kg, vg
     if "host" in only:
         import time
         w = (torch.randn((576, 1536), generator=gen, device="cuda") / 24).bfloat16()

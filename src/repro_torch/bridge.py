@@ -17,6 +17,8 @@ from repro_torch.core.adapters import LoRAAdapter
 from repro_torch.core.bitmap import NMWeight, QTiledBitmapWeight, TiledBitmapWeight
 from repro_torch.core.salr import QDenseWeight, SALRConfig, SALRLinear
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import mlp_linears
+from repro_torch.models.model import layer_kinds
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -140,7 +142,9 @@ def carry_moe(flat: dict, pre: str, r: int, cfg: ArchConfig, device) -> dict:
 def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     """The port's params from the reference's flat keystr dict.  The
     repeats axis of every stacked leaf is unstacked into per-layer
-    entries; tiled-bitmap static fields derive from the shapes (tile =
+    entries (a dense layer's MLP carries the linears of its kind,
+    ``layers.mlp_linears``: a relu2 or gelu MLP has no gate);
+    tiled-bitmap static fields derive from the shapes (tile =
     words-per-tile x 32, cap_t from the values, cols = n_tiles x tile),
     d_out from the config, and adapter scales are 1.0 (alpha = rank).  An
     N:M base (``.base.group_bits/values``) and a dense or masked base
@@ -154,17 +158,19 @@ def params_from_reference(flat: dict, cfg: ArchConfig, device=None):
     "mlp_norm", "mlp"}``; its mixer is GQA or MLA by the group pattern
     (``carry_mixer``)."""
     dev = resolve_device(device)
+    kinds = iter(layer_kinds(cfg))
     layers = []
     for gi, g in enumerate(cfg.layer_groups):
         for r in range(g.repeats):
             for pi, kind in enumerate(g.pattern):
+                _, mlp = next(kinds)
                 pre = f"['groups'][{gi}][{pi}]"
                 layer = {"mixer": carry_mixer(flat, pre, r, kind, cfg, dev)}
                 if pre + "['moe']['router']['w']" in flat:
                     layer["moe"] = carry_moe(flat, pre, r, cfg, dev)
                 else:
                     layer.update(mlp_norm=_norm(flat, f"{pre}['mlp_norm']", r, dev),
-                                 mlp=_carry_linears(flat, pre, "['mlp']", ("gate", "up", "down"),
+                                 mlp=_carry_linears(flat, pre, "['mlp']", mlp_linears(mlp),
                                                     r, cfg, dev))
                 layers.append(layer)
     return {"embed": {"table": to_tensor(flat["['embed']['table']"], dev)},

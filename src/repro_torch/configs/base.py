@@ -118,7 +118,8 @@ SHAPES = {
 _REGISTRY: dict = {}
 
 # archs ported so far (the reference registers eleven)
-PORTED = ["smollm_135m", "granite_moe_1b_a400m", "deepseek_v3_671b"]
+PORTED = ["smollm_135m", "granite_moe_1b_a400m", "deepseek_v3_671b", "llama3_8b_proxy",
+          "internlm2_1_8b", "mistral_large_123b", "nemotron_4_340b"]
 
 
 def register(name: str, config: ArchConfig, smoke: ArchConfig) -> None:

@@ -447,6 +447,31 @@ def nf4_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> to
     return y.reshape(*lead, n)
 
 
+# paged_gqa_attention's block (csrc/paged_attention.cu:27, THREADS)
+PAGED_GQA_THREADS = 128
+
+
+def paged_gqa_smem_bytes(g: int, d: int, ctx: int) -> int:
+    """Shared memory of one paged_gqa_attention block, as its launch sizes
+    it: the G query heads' q (G x d f32), their score rows over the page
+    table's whole width of ``ctx`` positions (G x ctx f32) and the PV
+    stripes' partial sums ((THREADS / d) x G x d f32).  A copy of the
+    launch's own sizing, csrc/paged_attention.cu:128-129: the two must
+    change together."""
+    return 4 * (g * d + g * ctx + (PAGED_GQA_THREADS // d) * g * d)
+
+
+def paged_gqa_max_ctx(g: int, d: int, smem_bytes: int) -> int:
+    """The widest page table, in positions, whose block fits in
+    ``smem_bytes`` of shared memory (:func:`paged_gqa_smem_bytes`)."""
+    return (smem_bytes // 4 - g * d - (PAGED_GQA_THREADS // d) * g * d) // g
+
+
+@functools.cache
+def _smem_optin(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
 def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, page_table: torch.Tensor,
                         pos: torch.Tensor) -> torch.Tensor:
@@ -474,6 +499,14 @@ def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"head and head dim 32/64/128 (got {h // kh}, {d})")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"{name}: pools must be {q.dtype}")
+    g, ctx, limit = h // kh, page_table.shape[1] * ps, _smem_optin(q.device)
+    if paged_gqa_smem_bytes(g, d, ctx) > limit:
+        cap = paged_gqa_max_ctx(g, d, limit)
+        raise ValueError(f"{name}: a page table of {page_table.shape[1]} pages of {ps} "
+                         f"({ctx} positions) needs {paged_gqa_smem_bytes(g, d, ctx)} bytes "
+                         f"of shared memory a block; at {g} query heads per KV head and "
+                         f"head dim {d} the card's {limit} take at most {cap} positions "
+                         f"({cap // ps} pages)")
     code = _check_cuda(name, q.dtype, q, k_pool, v_pool, page_table, pos)
     out = torch.empty_like(q)
     if b:

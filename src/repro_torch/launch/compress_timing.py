@@ -1,5 +1,6 @@
-"""Time the compress step on the GPU at the shapes of the three ported
-models, and its residual SVD under each cuSOLVER driver.
+"""Time the compress step on the GPU at the shapes of four ported models
+(smollm_135m, granite_moe_1b_a400m, deepseek_v3_671b, llama3_8b_proxy),
+and its residual SVD under each cuSOLVER driver.
 
     PYTHONPATH=src python -m repro_torch.launch.compress_timing \\
         [--drivers gesvd,gesvda,gesvdj] [--shapes smollm_gate,...] [--out t.json]
@@ -37,6 +38,8 @@ SHAPES = {
     "granite_stack_down": (32, 512, 1024, False),
     "deepseek_stack_gate": (18, 7168, 2048, False), "deepseek_wo": (None, 16384, 7168, False),
     "deepseek_gate": (None, 7168, 18432, True),
+    "llama_q": (None, 4096, 4096, True), "llama_kv": (None, 4096, 1024, True),
+    "llama_gate": (None, 4096, 14336, True), "llama_down": (None, 14336, 4096, False),
 }
 
 

@@ -20,6 +20,8 @@ row).  Runs on ``cuda`` unless ``--device cpu``.  Prompts are drawn from
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m --engine both
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \
       --engine both --requests 1 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b_proxy --engine both \
+      --requests 1 --batch 8 --slots 4 --prompt-len 128 --shared-prefix 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_v3_671b --smoke \
       --device cpu --engine both
 """
@@ -268,7 +270,11 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="leading prompt tokens every request shares")
     ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--slots", type=int, help="continuous engine slots (default: --batch, "
+                    "at least 2)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -280,7 +286,7 @@ def main(argv=None) -> int:
     params, init_s = build_params(cfg, args.seed, dev)
     print(f"compressed in {init_s:.2f}s")
     prompts = request_prompts(cfg, args.requests * args.batch, args.prompt_len,
-                              args.seed)
+                              args.seed, shared_prefix=args.shared_prefix)
     backends = ["kernel", "reference"] if args.backend == "both" else [args.backend]
     failed = False
     with torch.inference_mode():
@@ -294,7 +300,7 @@ def main(argv=None) -> int:
                       f"({greedy.size / dt:.1f} tok/s); sample {greedy[0, :8].tolist()}")
             if args.engine in ("continuous", "both"):
                 eng, results, m = run_continuous(cfg, params, prompts, args.gen,
-                                                 max(2, args.batch), backend=b)
+                                                 args.slots or max(2, args.batch), backend=b)
                 print(f"engine=continuous backend={b}: {route_line(cfg, eng.plan)}")
                 print(f"engine=continuous backend={b}: {m['requests']} requests, "
                       f"{m['total_tokens']} tokens in {m['wall_s']:.2f}s "
@@ -315,6 +321,8 @@ def main(argv=None) -> int:
                 else:
                     print("PARITY FAIL", file=sys.stderr)
                     failed = True
+    if dev.type == "cuda":
+        print(f"peak device memory {torch.cuda.max_memory_allocated(dev)} bytes")
     return 1 if failed else 0
 
 

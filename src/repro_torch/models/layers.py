@@ -1,5 +1,5 @@
-"""Model building blocks: SALR-aware linears, RMSNorm, RoPE, SwiGLU MLP,
-embedding and LM head.
+"""Model building blocks: SALR-aware linears, RMSNorm, RoPE, the MLPs
+(SwiGLU, squared ReLU, GELU), embedding and LM head.
 
 Every projection goes through ``init_linear``/``apply_linear``: a linear
 of a compressed target family is a ``SALRLinear`` (frozen base in the
@@ -86,17 +86,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp kind {kind!r} is not yet ported")
+    """The linears of ``mlp_linears(kind)``, drawn in that order; gate and
+    up transposed, as the reference draws them."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"gate": init_linear(gen, d, f, cfg, "mlp", device, transposed=True),
-            "up": init_linear(gen, d, f, cfg, "mlp", device, transposed=True),
-            "down": init_linear(gen, f, d, cfg, "mlp", device)}
+    shapes = {"gate": (d, f, True), "up": (d, f, True), "down": (f, d, False)}
+    return {n: init_linear(gen, shapes[n][0], shapes[n][1], cfg, "mlp", device,
+                           transposed=shapes[n][2]) for n in mlp_linears(kind)}
 
 
-def apply_mlp(p, x: torch.Tensor, route=None) -> torch.Tensor:
-    h = torch.nn.functional.silu(apply_linear(p["gate"], x, route)) * \
-        apply_linear(p["up"], x, route)
+def mlp_linears(kind: str) -> tuple:
+    """The linears of an MLP of ``kind``: SwiGLU gate, up and down; relu2
+    and gelu up and down."""
+    if kind == "swiglu":
+        return ("gate", "up", "down")
+    if kind in ("relu2", "gelu"):
+        return ("up", "down")
+    raise ValueError(f"mlp kind {kind!r}")
+
+
+def apply_mlp(p, x: torch.Tensor, kind: str, route=None) -> torch.Tensor:
+    """SwiGLU ``down(silu(gate(x)) * up(x))``, relu2 ``down(relu(up(x))^2)``,
+    gelu ``down(gelu(up(x)))`` with the tanh approximation (the default of
+    ``jax.nn.gelu``, which the reference calls)."""
+    if kind == "swiglu":
+        h = torch.nn.functional.silu(apply_linear(p["gate"], x, route)) * \
+            apply_linear(p["up"], x, route)
+    elif kind == "relu2":
+        h = torch.relu(apply_linear(p["up"], x, route)).square()
+    elif kind == "gelu":
+        h = torch.nn.functional.gelu(apply_linear(p["up"], x, route), approximate="tanh")
+    else:
+        raise ValueError(f"mlp kind {kind!r}")
     return apply_linear(p["down"], h, route)
 
 

@@ -5,7 +5,7 @@ paged-slot caches of the continuous-batching engine.
 Parameters are plain dicts: ``{"embed": {"table"}, "layers": [...],
 "final_norm": {"scale"}, "lm_head": {"w"}}`` with one entry per decoder
 layer in execution order (a Python loop where the reference scans over
-stacked repeats): ``{"mixer", "mlp_norm", "mlp"}`` for a SwiGLU layer,
+stacked repeats): ``{"mixer", "mlp_norm", "mlp"}`` for a dense layer,
 ``{"mixer", "moe"}`` for an MoE layer (the MoE block carries its own
 norm).  The mixer is GQA (``attn``) or MLA (``mla``), its cache a K/V
 cache or a latent cache.  Caches mirror that: ``{"layers": [{"mixer":
@@ -87,12 +87,12 @@ def params_device(params) -> torch.device:
     return params["embed"]["table"].device
 
 
-def apply_layer(p, x, cfg: ArchConfig, *, mode: str, positions=None, cache=None,
-                pos=None, route=None, page_table=None, prefix_cache=None,
+def apply_layer(p, x, cfg: ArchConfig, *, mode: str, mlp: str, positions=None,
+                cache=None, pos=None, route=None, page_table=None, prefix_cache=None,
                 q_offset: int = 0):
     """One block: attention (GQA or MLA, by the mixer's parameters) then
-    the SwiGLU MLP or the MoE layer (which follows the route's ``moe``).
-    Returns (x, new_cache)."""
+    the MLP of kind ``mlp`` (``layer_kinds``) or the MoE layer (which
+    follows the route's ``moe``).  Returns (x, new_cache)."""
     x, new_mixer = _APPLY_MIXER[_mixer_kind(p["mixer"])](
         p["mixer"], x, cfg, positions=positions, mode=mode,
         cache=cache["mixer"] if cache else None, pos=pos, route=route,
@@ -101,7 +101,8 @@ def apply_layer(p, x, cfg: ArchConfig, *, mode: str, positions=None, cache=None,
     if "moe" in p:
         x = moe.apply_moe(p["moe"], x, cfg, route=route)
     else:
-        x = x + apply_mlp(p["mlp"], apply_rmsnorm(p["mlp_norm"], x, cfg.norm_eps), route)
+        x = x + apply_mlp(p["mlp"], apply_rmsnorm(p["mlp_norm"], x, cfg.norm_eps), mlp,
+                          route)
     return x, {"mixer": new_mixer}
 
 
@@ -120,9 +121,9 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, logit_index=None,
     b, s, _ = x.shape
     positions = (pos_offset + torch.arange(s, device=x.device)).expand(b, s)
     caches = []
-    for i, lp in enumerate(params["layers"]):
+    for i, (lp, (_, mlp)) in enumerate(zip(params["layers"], layer_kinds(cfg), strict=True)):
         pc = prefix_cache["layers"][i] if prefix_cache else None
-        x, nc = apply_layer(lp, x, cfg, mode="prefill", positions=positions,
+        x, nc = apply_layer(lp, x, cfg, mode="prefill", mlp=mlp, positions=positions,
                             route=route, prefix_cache=pc, q_offset=pos_offset)
         caches.append(nc)
     x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -143,8 +144,9 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos,
     x = apply_embedding(params["embed"], tokens)
     pos = attn.pos_vector(pos, x.shape[0], x.device)
     page_table = cache.get("page_table")
-    for lp, lc in zip(params["layers"], cache["layers"]):
-        x, _ = apply_layer(lp, x, cfg, mode="decode", positions=pos[:, None],
+    for lp, lc, (_, mlp) in zip(params["layers"], cache["layers"], layer_kinds(cfg),
+                                strict=True):
+        x, _ = apply_layer(lp, x, cfg, mode="decode", mlp=mlp, positions=pos[:, None],
                            cache=lc, pos=pos, route=route, page_table=page_table)
     x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return apply_lm_head(params["lm_head"], x), cache

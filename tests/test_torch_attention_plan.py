@@ -69,3 +69,35 @@ def test_wrappers_pass_a_plan_independent_of_b(monkeypatch, kv, paged):
     chunks, chunk = ops.attention_plan(pages * ps, ps if paged else 1, kh, H100_SMS)
     assert [(c, n) for _, c, n in seen] == [(chunk, chunks)] * 3
     assert all((ws is None) == (chunks == 1) for ws, _, _ in seen)
+
+
+H100_SMEM_OPTIN = 227 * 1024    # an H100's opt-in shared memory a block
+
+
+@pytest.mark.parametrize("heads,cap", [((32, 8, 128), 14272), ((9, 3, 64), 19178)],
+                         ids=["llama3_8b_proxy", "smollm_135m"])
+def test_paged_gqa_context_cap(monkeypatch, heads, cap):
+    """paged_gqa_attention's block keeps a G x ctx f32 score row in shared
+    memory, which caps the page table's width: at an H100's 227 KB, 14272
+    positions at llama3_8b_proxy's heads (G 4, d 128) and 19178 at
+    smollm_135m's (G 3, d 64).  The wrapper launches a table up to the cap
+    and raises a ValueError naming it for one page wider, before any launch."""
+    h, kh, d = heads
+    g = h // kh
+    assert ops.paged_gqa_max_ctx(g, d, H100_SMEM_OPTIN) == cap
+    assert (ops.paged_gqa_smem_bytes(g, d, cap) <= H100_SMEM_OPTIN
+            < ops.paged_gqa_smem_bytes(g, d, cap + 1))
+    seen = []
+    monkeypatch.setattr(ops, "_placement", lambda *a: "cuda")
+    monkeypatch.setattr(ops, "_smem_optin", lambda device: H100_SMEM_OPTIN)
+    monkeypatch.setattr(ops, "_launch", lambda name, device, *args: seen.append(args[-2]))
+    ps = 8
+    q = torch.zeros((1, 1, h, d), dtype=torch.bfloat16)
+    pool = torch.zeros((2, ps, kh, d), dtype=torch.bfloat16)
+    pos = torch.zeros(1, dtype=torch.int32)
+    ops.paged_gqa_attention(q, pool, pool, torch.zeros((1, cap // ps), dtype=torch.int32), pos)
+    assert seen == [cap // ps]
+    with pytest.raises(ValueError, match=f"take at most {cap} positions"):
+        ops.paged_gqa_attention(q, pool, pool,
+                                torch.zeros((1, cap // ps + 1), dtype=torch.int32), pos)
+    assert seen == [cap // ps]

@@ -104,9 +104,11 @@ def test_spmm_kernels_match_plain(cuda, tile, cap_t, dtype, sms, k, monkeypatch)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, dtype):
+@pytest.mark.parametrize("heads", [(9, 3, 64), (32, 8, 128)], ids=["smollm", "llama"])
+def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, heads, dtype):
+    """At smollm_135m's heads and at llama3_8b_proxy's (G 4, d 128)."""
     rng = np.random.default_rng(2)
-    b, h, kh, d, ps, max_pages = 3, 9, 3, 64, 8, 4
+    (h, kh, d), b, ps, max_pages = heads, 3, 8, 4
     n_pages = b * max_pages + 1
     kp = torch.from_numpy(rng.standard_normal((n_pages, ps, kh, d))).to(cuda, dtype)
     vp = torch.from_numpy(rng.standard_normal((n_pages, ps, kh, d))).to(cuda, dtype)
@@ -122,6 +124,69 @@ def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, dtype):
     vp[0] = float("nan")
     torch.testing.assert_close(ops.paged_gqa_attention(q, kp, vp, table, pos), y,
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("heads", [(9, 3, 64), (32, 8, 128)], ids=["smollm", "llama"])
+def test_paged_kernel_takes_its_cap_and_refuses_past_it(cuda, heads):
+    """A page table as wide as ``ops.paged_gqa_max_ctx`` allows on this card
+    launches and matches the plain version; one page wider raises the
+    named ValueError before any launch."""
+    h, kh, d = heads
+    ps, dtype = 8, torch.bfloat16
+    cap = ops.paged_gqa_max_ctx(h // kh, d, ops._smem_optin(cuda))
+    pages = cap // ps
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kp, vp = (torch.randn((pages + 2, ps, kh, d), generator=gen, device=cuda).to(dtype)
+              for _ in range(2))
+    q = torch.randn((1, 1, h, d), generator=gen, device=cuda).to(dtype)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=cuda)[None]
+    pos = torch.tensor([pages * ps - 1], dtype=torch.int32, device=cuda)
+    y = ops.paged_gqa_attention(q, kp, vp, table, pos)
+    assert _close(y, ref.paged_gqa_attention_ref(q, kp, vp, table, pos), dtype)
+    wider = torch.cat([table, table.new_full((1, 1), pages + 1)], dim=1)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match=f"take at most {cap} positions"):
+        ops.paged_gqa_attention(q, kp, vp, wider, pos)
+    assert ops.LAUNCHES["paged_gqa_attention"] == 0
+
+
+def test_nemotron_smoke_model_kernel_route_matches_plain_route(cuda):
+    """nemotron_4_340b's smoke model (relu2 MLP, f32) compressed on the
+    card: prefill and decode logits of the kernel route (salr_spmm, 6 per
+    layer) within the method budget of the plain route, and the continuous
+    engine (paged_gqa_attention, one per layer and tick) equal to
+    greedy_generate up to near-ties."""
+    from repro_torch.core import execplan
+    from repro_torch.core.quant import ERROR_BUDGETS
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = configs.get("nemotron_4_340b", smoke=True)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    prompts = serve.request_prompts(cfg, 4, 12, 0, shared_prefix=4)
+    kernel, plain = (execplan.resolve_plan(cfg, backend=b) for b in ("kernel", "reference"))
+    budget = ERROR_BUDGETS["method:bitmap"]
+    with torch.inference_mode():
+        pt = torch.from_numpy(prompts).to(cuda)
+        ops.reset_launches()
+        lk, ck = M.prefill(params, cfg, pt, plan=kernel)
+        assert ops.LAUNCHES["salr_spmm"] == 6 * cfg.n_layers
+        lr, _ = M.prefill(params, cfg, pt, plan=plain)
+        assert (lk - lr).norm() <= budget * lr.norm()
+        cache = M.init_cache(cfg, 4, 16, cuda)
+        for lc, pc in zip(cache["layers"], ck["layers"]):
+            lc["mixer"].k[:, :12] = pc["mixer"].k
+            lc["mixer"].v[:, :12] = pc["mixer"].v
+        tok = lk[:, -1].argmax(-1, keepdim=True).int()
+        dk, _ = M.decode_step(params, cfg, cache, tok, 12, plan=kernel)
+        dr, _ = M.decode_step(params, cfg, cache, tok, 12, plan=plain)
+        assert (dk - dr).norm() <= budget * dr.norm()
+        greedy, _ = serve.run_batch(cfg, params, prompts, 8, 4, kernel)
+        ops.reset_launches()
+        _, results, metrics = serve.run_continuous(cfg, params, prompts, 8, 4, plan=kernel)
+        assert ops.LAUNCHES["paged_gqa_attention"] == cfg.n_layers * metrics["n_decode_ticks"]
+        report = serve.parity_report(cfg, params, prompts, greedy, results, kernel)
+    assert all(d.near_tie for d in report), report
 
 
 @pytest.mark.parametrize("k", _SALR_K)

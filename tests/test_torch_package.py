@@ -39,7 +39,9 @@ def _fields(obj):
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copies_equal_reference(smoke):
-    assert tconfigs.PORTED == ["smollm_135m", "granite_moe_1b_a400m", "deepseek_v3_671b"]
+    assert tconfigs.PORTED == ["smollm_135m", "granite_moe_1b_a400m", "deepseek_v3_671b",
+                               "llama3_8b_proxy", "internlm2_1_8b", "mistral_large_123b",
+                               "nemotron_4_340b"]
     for name in tconfigs.PORTED:
         t, j = tconfigs.get(name, smoke=smoke), jconfigs.get(name, smoke=smoke)
         assert _fields(t) == _fields(j)

@@ -216,9 +216,10 @@ def test_qsalr_expert_wrappers_pass_no_plan(monkeypatch, kind, route):
 
 # (K, N) of the salr_spmm / qsalr_spmm calls in tests/test_torch_cuda.py
 # and chip_smoke.py phase 2: smollm's four projection shapes, deepseek's wo,
-# shared expert and gate/up, and the ragged ones
+# shared expert and gate/up, llama3_8b_proxy's four, and the ragged ones
 SALR_SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576), (16384, 7168), (7168, 2048),
-               (2048, 7168), (7168, 18432), (100, 64), (100, 192), (100, 384), (100, 512)]
+               (2048, 7168), (7168, 18432), (4096, 4096), (4096, 1024), (4096, 14336),
+               (14336, 4096), (100, 64), (100, 192), (100, 384), (100, 512)]
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 1, 1000])
